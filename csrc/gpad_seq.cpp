@@ -5,7 +5,7 @@
 // variants) rebuilt for this framework: float32, row-major, canonical
 // (MATLAB/paper) sign convention zhat = -M_G w - g_P, plus a full
 // fixed-budget solve loop (acceldualgrad.m:39-64) and a paired half-stack
-// solve matching the TPU solver's layout. Exposed with C linkage for ctypes.
+// solve matching the JAX solver's layout. Exposed with C linkage for ctypes.
 //
 // Role in the oracle hierarchy (SURVEY.md section 4): the fast host-side
 // ground truth for parity tests and the CPU baseline the benchmark's
@@ -85,7 +85,7 @@ void gpad_solve_fixed(const float* MG_T, const float* GL_T, const float* g_P,
   std::memcpy(y_out, y, sizeof(float) * m);
 }
 
-// Paired half-stack solve (the TPU solver's layout, GPADData docs):
+// Paired half-stack solve (the JAX solver's layout, GPADData docs):
 // MG_T is (m_h x n_z), GL_T is (n_z x m_h), p_D is (2 x m_h) [plus; minus],
 // y/w are (2 x m_h). Step 2 contracts (w+ - w-); step 4 computes
 // q = GL_T^T zhat once and projects both sign applications.

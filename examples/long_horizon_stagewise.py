@@ -74,22 +74,6 @@ def main():
           f"{drift:.2e}")
     assert drift < 5e-3
 
-    # --- fixed-budget serving on the HBM-streamed kernel (TPU only) ------
-    # At big-state shapes the fixed-mode auto route is the streamed fused
-    # kernel (chip-measured 1.9x the XLA scan at n30 N200 B1024,
-    # STAGEWISE.json stream_rows). Interpret mode would crawl on CPU, so
-    # this leg only runs on a real TPU backend.
-    import jax
-
-    if jax.default_backend() == "tpu":
-        from tpu_gpad.stagewise import solve_stagewise
-
-        res_fx = solve_stagewise(data, jnp.asarray(X0), iterations=200)
-        print(f"fixed-200 via auto (streamed kernel): max residual "
-              f"{float(np.max(np.asarray(res_fx.residual))):.2e}")
-    else:
-        print("fixed-mode streamed-kernel leg skipped (CPU backend)")
-
     print("OK")
 
 

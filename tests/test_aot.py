@@ -1,4 +1,4 @@
-"""AOT export/reload: the TPU-native analogue of the reference's prebuilt
+"""AOT export/reload: the JAX analogue of the reference's prebuilt
 solver binary (build/main, SURVEY.md C10) via jax.export."""
 
 import numpy as np
@@ -80,7 +80,7 @@ def test_aot_stagewise_export_roundtrip(tmp_path):
     for B in (1, 5):
         X0 = rng.uniform(-0.3, 0.3, (B, 3)).astype(np.float32)
         out = solve(X0)
-        ref = solve_stagewise(data, X0, config=cfg, engine="xla")
+        ref = solve_stagewise(data, X0, config=cfg)
         np.testing.assert_allclose(
             np.asarray(out["u"]), np.asarray(ref.u), atol=2e-6
         )

@@ -4,7 +4,6 @@ import numpy as np
 
 import tpu_gpad
 
-from conftest import backend_tol
 from tpu_gpad import problems
 from tpu_gpad.closed_loop import simulate, plot_closed_loop
 from tpu_gpad.solver import SolverConfig
@@ -44,17 +43,13 @@ def test_batched_closed_loop_matches_single():
     X0 = rng.uniform(-0.3, 0.3, size=(4, 3)).astype(np.float32)
     rb = simulate(prob, X0, n_steps=20, config=SolverConfig(iterations=60))
     r1 = simulate(prob, X0[1], n_steps=20, config=SolverConfig(iterations=60))
-    # On TPU, B=4 and B=1 compile to different programs whose ~1e-3
-    # per-solve differences compound through the plant feedback over 20
-    # samples; the trajectories agree only to ~1e-2 there (bitwise-level
-    # equivalence is a CPU-only property).
     np.testing.assert_allclose(
         np.asarray(rb.X[:, 1, :]), np.asarray(r1.X[:, 0, :]),
-        atol=backend_tol(1e-5, 3e-2),
+        atol=1e-5,
     )
 
 
-def test_closed_loop_pallas_engine():
+def test_closed_loop_pallas_engine(interpret_kernel):
     prob = problems.battery(n_cells=3, horizon=6)
     x0 = problems.battery_default_x0(3, seed=2)
     r_x = simulate(prob, x0, n_steps=10, config=SolverConfig(iterations=50, engine="xla"))
@@ -108,7 +103,7 @@ def test_warm_start_solve_api():
     assert e2 <= e1 * 1.05, (e1, e2)
 
 
-def test_closed_loop_pallas_engine_with_warm_start():
+def test_closed_loop_pallas_engine_with_warm_start(interpret_kernel):
     """The fused dual kernel drives the closed loop (incl. y0 warm starts)."""
     problem = problems.battery(n_cells=3, horizon=4)
     x0 = np.asarray(problems.battery_default_x0(3, seed=2), dtype=np.float32)
@@ -176,7 +171,7 @@ def test_controller_batched_plants():
     assert U.shape == (5, 3)
     # batch-size change mid-stream silently drops the warm start
     u1 = ctrl.step(X[0])
-    np.testing.assert_allclose(u1, U[0], atol=backend_tol(1e-4, 5e-3))
+    np.testing.assert_allclose(u1, U[0], atol=1e-4)
 
 
 def test_controller_with_polish_is_exact():

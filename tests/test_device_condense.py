@@ -8,7 +8,6 @@ import jax.numpy as jnp
 import pytest
 
 import tpu_gpad
-from conftest import backend_tol
 from tpu_gpad.condense import prediction_matrices_ltv
 from tpu_gpad.device_condense import (
     dualize_ltv_device,
@@ -50,7 +49,7 @@ def test_prediction_matrices_match_host():
     T_d, S_d = prediction_matrices_device(
         jnp.asarray(A, jnp.float32), jnp.asarray(B, jnp.float32)
     )
-    tol = backend_tol(1e-5, 1e-4)
+    tol = 1e-5
     np.testing.assert_allclose(np.asarray(T_d), T_h, atol=tol)
     np.testing.assert_allclose(np.asarray(S_d), S_h, atol=tol)
 
@@ -67,7 +66,7 @@ def test_gpaddata_matches_host_layout():
     assert dev.paired and dev.n_struct == host.n_struct == 18
     assert dev.m_half == host.m_half
     # L-independent operands agree to fp32 accuracy, same row order
-    tol_op = backend_tol(2e-4, 2e-3)
+    tol_op = 2e-4
     np.testing.assert_allclose(
         np.asarray(dev.MG_T), np.asarray(host.MG_T), atol=tol_op
     )
@@ -84,15 +83,15 @@ def test_gpaddata_matches_host_layout():
     # L-scaled operands agree after rescaling
     np.testing.assert_allclose(
         np.asarray(dev.D) * L_d, np.asarray(host.D) * L_h,
-        atol=backend_tol(2e-3, 5e-3),
+        atol=2e-3,
     )
     np.testing.assert_allclose(
         np.asarray(dev.pD_const) * L_d,
-        np.asarray(host.pD_const) * L_h, atol=backend_tol(1e-4, 1e-3),
+        np.asarray(host.pD_const) * L_h, atol=1e-4,
     )
     np.testing.assert_allclose(
         np.asarray(dev.pD_map) * L_d,
-        np.asarray(host.pD_map) * L_h, atol=backend_tol(1e-4, 1e-3),
+        np.asarray(host.pD_map) * L_h, atol=1e-4,
     )
 
 
@@ -117,7 +116,7 @@ def test_solutions_match_host_pipeline(preview):
     r_d = solve_batch(dev, p, config=cfg)
     assert np.asarray(r_h.converged).all() and np.asarray(r_d.converged).all()
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(2e-3, 5e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=2e-3
     )
 
 
@@ -154,7 +153,7 @@ def test_jit_and_vmap_composition():
     host = _host_data(A, B, c, Q, R, BOUNDS, 150)
     u_host = solve_batch(host, p[None], config=cfg).u[0]
     np.testing.assert_allclose(np.asarray(u_jit), np.asarray(u_host),
-                               atol=backend_tol(5e-3, 1e-2))
+                               atol=5e-3)
 
     # vmap over B independent linearizations (the NMPC batch case)
     As, Bs, cs, ps = [], [], [], []
@@ -214,7 +213,7 @@ def test_device_vs_host_shape_fuzz(N, n_x, n_u, seed):
     r_d = solve_batch(dev, p, config=cfg)
     assert np.asarray(r_h.converged).all() and np.asarray(r_d.converged).all()
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(2e-3, 5e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=2e-3
     )
 
 
@@ -301,7 +300,7 @@ def test_nmpc_device_batch_matches_single():
     for s in range(3):
         u_s = dev_single.plan(X[s], x_ref=ref)
         dev_single.reset()
-        np.testing.assert_allclose(U_b[s], u_s, atol=backend_tol(1e-4, 1e-3))
+        np.testing.assert_allclose(U_b[s], u_s, atol=1e-4)
 
 
 def test_simulate_nonlinear_device_matches_host_loop():
@@ -354,7 +353,7 @@ def test_rate_limited_solutions_match_host():
     r_d = solve_batch(dev, p, config=cfg)
     assert np.asarray(r_h.converged).all() and np.asarray(r_d.converged).all()
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(2e-3, 5e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=2e-3
     )
     # the slew constraint binds on the first move from this u_prev
     u0 = np.asarray(r_d.u[0], dtype=np.float64)
@@ -392,7 +391,7 @@ def test_coupling_solutions_match_host():
     r_d = solve_batch(dev, p, config=cfg)
     assert np.asarray(r_h.converged).all() and np.asarray(r_d.converged).all()
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(2e-3, 5e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=2e-3
     )
     z = np.asarray(r_d.z[0]).reshape(N, prob.n_u)
     np.testing.assert_allclose(z.sum(axis=1), 0.0, atol=1e-4)
@@ -419,7 +418,7 @@ def test_nmpc_device_rate_limits_closed_loop():
         ctrl.f, ctrl, np.array([2.4, 0.0], np.float32), 35, x_ref=ref
     )
     dU = np.diff(np.concatenate([[np.zeros(1)], U], axis=0), axis=0)
-    assert np.abs(dU).max() <= 2.0 + backend_tol(1e-3, 1e-2)
+    assert np.abs(dU).max() <= 2.0 + 1e-3
     assert abs(X[-1, 0] - np.pi) < 0.15
 
 
@@ -518,7 +517,7 @@ def test_soft_state_matches_host_slack_formulation():
     r_h = solve_batch(host, p, config=cfg)
     r_d = solve_batch(dev, p, config=cfg)
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(1e-4, 1e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=1e-4
     )
     # non-vacuous: the soft rows are active (positive dual <=> slack used)
     y = np.asarray(r_d.y[0])
@@ -560,17 +559,21 @@ def _soft_dev_data(iterations=400):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(form="dual"),  # whole-VMEM dual kernel
+        dict(form="dual"),  # fused dual kernel
         dict(form="dual", restart=True),  # + O'Donoghue-Candes recursion
-        dict(form="mvp", flat="on"),  # flat (identity-block) paired kernel
-        dict(form="mvp", flat="off"),  # dense paired kernel
-        dict(mode="eps", eps_g=1e-4, eps_V=1e-4, check_every=37),  # chunked
+        dict(form="mvp", flat="on"),  # flat (identity-block) XLA loop
+        dict(form="mvp", flat="off"),  # dense paired XLA loop
+        dict(mode="eps", eps_g=1e-4, eps_V=1e-4, check_every=37),
     ],
     ids=["dual", "dual-restart", "flat", "paired", "eps"],
 )
-def test_soft_pallas_kernels_match_xla(kw):
-    """Every whole-VMEM kernel carries GPADData.soft_damp: forced pallas
-    (interpret mode on CPU) must track the XLA loop's damped iteration."""
+def test_soft_pallas_kernels_match_xla(kw, interpret_kernel):
+    """The fused dual kernel carries GPADData.soft_damp: forced pallas
+    (interpret mode on CPU) must track the XLA loop's damped iteration.
+    The forms it does not run route "auto" to that very XLA loop."""
+    from tpu_gpad.solver import kernels
+    from tpu_gpad.solver.core import resolve_engine
+
     dev = _soft_dev_data()
     rng = np.random.default_rng(5)
     p = np.concatenate(
@@ -579,16 +582,15 @@ def test_soft_pallas_kernels_match_xla(kw):
     r_x = solve_batch(
         dev, p, config=SolverConfig(iterations=300, engine="xla", **kw)
     )
-    r_p = solve_batch(
-        dev, p, config=SolverConfig(iterations=300, engine="pallas", **kw)
-    )
-    tol = backend_tol(2e-5, 1e-3)
+    cfg = SolverConfig(iterations=300, **kw)
+    engine = "pallas" if kernels.admits(dev, cfg)[0] else "auto"
+    assert (engine == "pallas") == (kw.get("form") == "dual")
+    cfg = dataclasses.replace(cfg, engine=engine)
+    assert resolve_engine(dev, cfg) == ("pallas" if engine == "pallas" else "xla")
+    r_p = solve_batch(dev, p, config=cfg)
+    tol = 2e-5
     np.testing.assert_allclose(np.asarray(r_p.u), np.asarray(r_x.u), atol=tol)
     if kw.get("mode") == "eps":
-        # captured iterates match exactly; the RAW final y does not (the
-        # chunked kernel's final partial window advances converged state
-        # that the XLA while_loop froze by exiting early — pre-existing
-        # eps semantics, not a soft-damping artifact)
         np.testing.assert_array_equal(
             np.asarray(r_p.iterations), np.asarray(r_x.iterations)
         )
@@ -605,7 +607,7 @@ def test_soft_pallas_kernels_match_xla(kw):
     assert np.asarray(r_p.y)[:, :, :18].max() > 1e-3
 
 
-def test_soft_pallas_warm_start_matches_xla():
+def test_soft_pallas_warm_start_matches_xla(interpret_kernel):
     dev = _soft_dev_data()
     p = np.concatenate([[0.45, -0.3, 0.2], np.zeros(3)]).astype(
         np.float32
@@ -621,41 +623,26 @@ def test_soft_pallas_warm_start_matches_xla():
         dev, p, config=SolverConfig(engine="pallas", **kw), y0=cold.y
     )
     np.testing.assert_allclose(
-        np.asarray(r_p.u), np.asarray(r_x.u), atol=backend_tol(2e-5, 1e-3)
+        np.asarray(r_p.u), np.asarray(r_x.u), atol=2e-5
     )
 
 
-def test_soft_routing_and_tiled_guards():
-    """auto keeps XLA off-TPU and the fused paired kernels ON TPU
-    (chip-measured 1.9-2.3x, SOFT_PALLAS.json); the streamed/dense
-    kernels refuse soft data loudly instead of silently dropping the
-    damping."""
-    import jax
-
+def test_soft_routing_and_tiled_guards(monkeypatch):
+    """auto takes the fused dual kernel for soft (paired) data exactly when
+    the backend is a GPU; unpaired soft data has no kernel and forcing
+    pallas there refuses loudly instead of dropping the damping."""
     from tpu_gpad.solver import kernels
     from tpu_gpad.solver.core import resolve_engine
 
     dev = _soft_dev_data(iterations=100)
-    expected = "pallas" if jax.default_backend() == "tpu" else "xla"
-    assert resolve_engine(dev, SolverConfig(iterations=100)) == expected
-    assert not kernels.dual_tiled_fits(dev)
-    assert not kernels.flat_tiled_fits(dev)
-    p_D = jnp.zeros((1, 2, dev.m_half), jnp.float32)
-    g_P = jnp.zeros((1, dev.n_z), jnp.float32)
-    with pytest.raises(ValueError, match="soft"):
-        kernels.gpad_pallas_fixed_dual_tiled(
-            dev, g_P, p_D, iterations=10, interpret=True
-        )
-    with pytest.raises(ValueError, match="soft"):
-        kernels.gpad_pallas_fixed_flat_tiled(
-            dev, g_P, p_D, iterations=10, interpret=True
-        )
+    cfg = SolverConfig(iterations=100)
+    assert resolve_engine(dev, cfg) == "xla"  # CPU backend
+    monkeypatch.setattr(kernels, "on_gpu", lambda: True)
+    assert resolve_engine(dev, cfg) == "pallas"
     undamped = dataclasses.replace(dev, paired=False)
-    with pytest.raises(ValueError, match="soft"):
-        kernels.gpad_pallas_fixed(
-            undamped, g_P, jnp.zeros((1, dev.m)), iterations=10,
-            interpret=True,
-        )
+    assert resolve_engine(undamped, cfg) == "xla"
+    with pytest.raises(ValueError, match="paired"):
+        resolve_engine(undamped, dataclasses.replace(cfg, engine="pallas"))
 
 
 def test_polytopes_match_host_dense_path():
@@ -693,7 +680,7 @@ def test_polytopes_match_host_dense_path():
     r_h = solve_batch(host, p, config=cfg)
     r_d = solve_batch(dev, p, config=cfg)
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(1e-4, 1e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=1e-4
     )
     y = np.asarray(r_d.y[0])
     # non-vacuous: at least one polytope row is active...
@@ -724,7 +711,7 @@ def test_nmpc_device_soft_and_polytopes_match_host():
         X_d, _ = simulate_nonlinear(
             f, NMPC(f, device_condense=True, **kw), x0, n_steps=12,
             x_ref=UPRIGHT)
-        np.testing.assert_allclose(X_d, X_h, atol=backend_tol(5e-3, 2e-2))
+        np.testing.assert_allclose(X_d, X_h, atol=5e-3)
 
 
 def test_scenario_device_soft_matches_host():
@@ -775,7 +762,7 @@ def test_scenario_device_soft_matches_host():
     r_h = solve_batch(host, p, config=cfg)
     r_d = solve_batch(dev, p, config=cfg)
     np.testing.assert_allclose(
-        np.asarray(r_d.u), np.asarray(r_h.u), atol=backend_tol(1e-4, 1e-3)
+        np.asarray(r_d.u), np.asarray(r_h.u), atol=1e-4
     )
     assert np.asarray(r_d.y[0])[:, :S * blk].max() > 1e-3  # soft active
 
@@ -811,7 +798,7 @@ def test_robust_nmpc_device_soft_closed_loop():
             X.append(np.asarray(x))
         trajs[label] = np.stack(X)
     np.testing.assert_allclose(
-        trajs["device"], trajs["host"], atol=backend_tol(5e-3, 2e-2)
+        trajs["device"], trajs["host"], atol=5e-3
     )
 
 

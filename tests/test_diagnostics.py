@@ -1,9 +1,11 @@
 """SolverConfig(diagnostics=False): residual-free serving mode.
 
-The fused kernels drop their w/zhat diagnostic outputs (fewer HBM-written,
-double-buffered blocks) and SolveResult.residual/gap come back NaN; the
+The fused dual kernel drops its w outputs, the XLA loops skip the
+post-loop recovery, and SolveResult.residual/gap come back NaN; the
 iterates u/z/y must be bit-identical to the diagnostics=True solve on every
-engine and kernel form."""
+engine and form. "pallas" runs the fused kernel in interpret mode
+(``interpret_kernel``); the mvp forms and unpaired data have no kernel, so
+"auto" resolves to the XLA loop there and a forced "pallas" is refused."""
 
 import numpy as np
 import pytest
@@ -50,47 +52,60 @@ def _check_pair(data, qp, base_cfg):
     assert not np.isnan(np.asarray(full.residual)).any()
 
 
+def _check_pair_or_refused(data, qp, cfg):
+    """Forcing engine="pallas" where the fused kernel does not apply must
+    raise, with diagnostics on or off; other engines run the pair check."""
+    import dataclasses
+
+    if cfg.engine != "pallas":
+        return _check_pair(data, qp, cfg)
+    for diagnostics in (True, False):
+        with pytest.raises(ValueError, match="fused dual kernel"):
+            solve_batch(data, _x0(2, qp.n_x),
+                        config=dataclasses.replace(cfg, diagnostics=diagnostics))
+
+
 @pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_diagnostics_off_dual_form(data_paired, qp, engine):
+def test_diagnostics_off_dual_form(data_paired, qp, engine, interpret_kernel):
     _check_pair(
         data_paired, qp,
         SolverConfig(iterations=60, engine=engine, form="dual"),
     )
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["xla", "auto", "pallas"])
 def test_diagnostics_off_paired_mvp(data_paired, qp, engine):
-    _check_pair(
+    _check_pair_or_refused(
         data_paired, qp,
         SolverConfig(iterations=60, engine=engine, form="mvp", flat="off"),
     )
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["xla", "auto", "pallas"])
 def test_diagnostics_off_flat(data_paired, qp, engine):
     if data_paired.n_struct is None:
         pytest.skip("battery stack has no identity block")
-    _check_pair(
+    _check_pair_or_refused(
         data_paired, qp,
         SolverConfig(iterations=60, engine=engine, form="mvp", flat="on"),
     )
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["xla", "auto", "pallas"])
 def test_diagnostics_off_dense(data_dense, qp, engine):
-    _check_pair(
+    _check_pair_or_refused(
         data_dense, qp, SolverConfig(iterations=60, engine=engine)
     )
 
 
-def test_diagnostics_off_restart_dual(data_paired, qp):
+def test_diagnostics_off_restart_dual(data_paired, qp, interpret_kernel):
     _check_pair(
         data_paired, qp,
         SolverConfig(iterations=60, engine="pallas", form="dual", restart=True),
     )
 
 
-def test_diagnostics_off_warm_start_roundtrip(data_paired, qp):
+def test_diagnostics_off_warm_start_roundtrip(data_paired, qp, interpret_kernel):
     """The y from a diagnostics-off solve warm-starts the next one."""
     import dataclasses
 
@@ -120,20 +135,14 @@ def test_diagnostics_off_eps_raises(data_paired, qp):
 
 
 def test_diagnostics_off_tiled(qp):
-    """The VMEM-oversized route (tiled dual kernel) honors the flag too."""
+    """A dual past the kernel's admission (m_half=140 pads to 256 rows >
+    MAX_DUAL_ROWS) takes the XLA dual loop and honors the flag too."""
     from tpu_gpad.solver import kernels
+    from tpu_gpad.solver.core import resolve_engine
 
-    qp_big = tpu_gpad.condense(problems.battery(n_cells=3, horizon=10))
-    data = tpu_gpad.dualize(qp_big, iterations=50, paired=True)
-    X0 = _x0(2, qp_big.n_x, seed=1)
-    g_P, p_D = tpu_gpad.solver.core.affine_params(data, X0)
-    z, y, w, zhat = kernels.gpad_pallas_fixed_dual_tiled(
-        data, g_P, p_D, iterations=50, interpret=True, row_tile=8,
-        diagnostics=False,
-    )
-    assert w is None and zhat is None
-    z2, y2, _, _ = kernels.gpad_pallas_fixed_dual_tiled(
-        data, g_P, p_D, iterations=50, interpret=True, row_tile=8,
-    )
-    np.testing.assert_array_equal(np.asarray(z), np.asarray(z2))
-    np.testing.assert_array_equal(np.asarray(y), np.asarray(y2))
+    qp_big = tpu_gpad.condense(problems.battery(n_cells=3, horizon=20))
+    data = tpu_gpad.dualize(qp_big, iterations=100, paired=True)
+    cfg = SolverConfig(iterations=50, form="dual")
+    assert kernels.padded_rows(data.m_half) > kernels.MAX_DUAL_ROWS
+    assert resolve_engine(data, cfg) == "xla"
+    _check_pair(data, qp_big, cfg)

@@ -13,6 +13,7 @@ import pytest
 
 import tpu_gpad
 from tpu_gpad import diff, problems
+from tpu_gpad.problems.battery import default_x0
 from tpu_gpad.solver import SolverConfig, solve_batch
 from tpu_gpad.solver.qp import solve_condensed_qp
 
@@ -224,7 +225,7 @@ def test_controller_gain_convenience():
 
 
 def test_cg_solver_matches_cholesky():
-    """method='cg' (the TPU path) == method='chol' on every layout."""
+    """method='cg' == method='chol' (the default) on every layout."""
     qp = tpu_gpad.condense(problems.battery(n_cells=3, horizon=8))
     data = tpu_gpad.dualize(qp, iterations=400, paired="auto")
     from tpu_gpad.problems.battery import default_x0
@@ -250,3 +251,50 @@ def test_cg_solver_matches_cholesky():
     # ~1e-5, not machine epsilon
     np.testing.assert_allclose(np.asarray(g_cg), np.asarray(g_ch),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "make, P",
+    [
+        (lambda: problems.battery(n_cells=3, horizon=8),
+         lambda: np.stack([default_x0(3, seed=s) for s in range(4)])),
+        (lambda: problems.battery(n_cells=3, horizon=10),
+         lambda: np.random.default_rng(0).uniform(-0.5, 0.5, (4, 3))),
+    ],
+    ids=["battery_n3N8", "battery_n3N10"],
+)
+def test_cg_matches_cholesky_batched_and_alone(make, P):
+    """CG against the default (Cholesky) KKT solve, in a batch and one
+    scenario at a time. CG stops each scenario at a 1e-5 relative
+    residual, so it agrees with Cholesky to 2e-5 of the largest entry here
+    (measured on the CPU: 5e-6 of max|K|, 7e-6 of max|grad|; at battery
+    n3 N50 its gradient error reaches 1.9e-4 of max|grad|, PERF.md); a
+    scenario's result does not depend on its batch beyond the forward
+    solve's own rounding (Cholesky: 1.6e-7)."""
+    qp = tpu_gpad.condense(make())
+    data = tpu_gpad.dualize(qp, iterations=400, paired="auto")
+    cfg = SolverConfig(iterations=300, restart=True, engine="xla")
+    P = jnp.asarray(P(), jnp.float32)
+    res = solve_batch(data, P, config=cfg)
+    K_chol, _ = diff.sensitivity(data, res.y)
+    K_cg, _ = diff.sensitivity(data, res.y, method="cg")
+    K_alone = jnp.stack([diff.sensitivity(data, res.y[i], method="cg")[0]
+                         for i in range(P.shape[0])])
+    scale = float(jnp.abs(K_chol).max())
+    np.testing.assert_allclose(np.asarray(K_cg), np.asarray(K_chol),
+                               atol=2e-5 * scale)
+    np.testing.assert_allclose(np.asarray(K_alone), np.asarray(K_cg),
+                               atol=1e-6)
+
+    def grads(method):
+        f = diff.make_differentiable_solver(data, cfg, method=method)
+        g = jax.grad(lambda p: 0.5 * jnp.sum(f(p) ** 2))
+        return g(P), jnp.concatenate([g(P[i:i + 1]) for i in range(P.shape[0])])
+
+    g_chol, _ = grads("auto")
+    g_cg, g_cg_alone = grads("cg")
+    scale = float(jnp.abs(g_chol).max())
+    np.testing.assert_allclose(np.asarray(g_cg), np.asarray(g_chol),
+                               atol=2e-5 * scale)
+    np.testing.assert_allclose(np.asarray(g_cg_alone), np.asarray(g_cg),
+                               atol=5e-7)

@@ -22,16 +22,12 @@ from tpu_gpad.problems.battery import default_x0
 
 CFG = SolverConfig(iterations=300, restart=True, engine="xla", form="mvp")
 
-# Chip calibration (CLAUDE.md round-3): finite differences of data-grads
-# need h >= 0.05 on the real TPU — the fp32 fixed-point plateau swallows
-# smaller steps (the implicit gradient itself has no floor) — with
-# correspondingly looser FD tolerances; grad-path-vs-grad-path
-# comparisons only need the ~1e-7 -> ~2e-7 fp32 KKT-solve slack.
-_ON_TPU = jax.default_backend() == "tpu"
-_H = 0.05 if _ON_TPU else 3e-5
-_FD_ABS = 2e-2 if _ON_TPU else 2e-3
-_FD_REL = 5e-2 if _ON_TPU else 5e-3
-_GG_ATOL = 1e-5 if _ON_TPU else 1e-7
+# Finite-difference step and tolerances of the data-grad checks;
+# grad-path-vs-grad-path comparisons only need the fp32 KKT-solve slack.
+_H = 3e-5
+_FD_ABS = 2e-3
+_FD_REL = 5e-3
+_GG_ATOL = 1e-7
 
 
 def _loss_fn(f, P):

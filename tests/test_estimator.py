@@ -8,7 +8,6 @@ import pytest
 
 import tpu_gpad
 
-from conftest import backend_tol
 from tpu_gpad import problems
 from tpu_gpad.estimator import (
     KalmanFilter,
@@ -285,8 +284,8 @@ def test_ekf_linear_matches_kf_recursion(rng):
         IKH = np.eye(2) - K @ C
         P_ref = IKH @ P_pred @ IKH.T + K @ V @ K.T
         np.testing.assert_allclose(
-            x_hat, x_ref, atol=backend_tol(1e-4, 2e-3))
-    np.testing.assert_allclose(ekf.P, P_ref, atol=backend_tol(1e-5, 1e-3))
+            x_hat, x_ref, atol=1e-4)
+    np.testing.assert_allclose(ekf.P, P_ref, atol=1e-5)
 
 
 def test_ekf_pendulum_state_reconstruction():

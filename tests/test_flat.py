@@ -1,4 +1,4 @@
-"""Flat (identity-block) structure exploitation — the TPU analogue of the
+"""Flat (identity-block) structure exploitation — the XLA analogue of the
 reference's flat kernels (``seq_functions.cpp:5-43``,
 ``kernel_functions.cu:74-109`` StepFourGPADFlatParRows).
 
@@ -15,7 +15,6 @@ from tpu_gpad.solver import SolverConfig, solve_batch
 from tpu_gpad.solver.core import resolve_flat
 from tpu_gpad.solver.reference import gpad_solve_qp
 
-from conftest import backend_tol
 
 
 @pytest.fixture(scope="module")
@@ -69,15 +68,15 @@ def test_flat_on_off_parity_fixed(flat_data):
     r_off = solve_batch(data, X0, config=SolverConfig(flat="off", **kw))
     np.testing.assert_allclose(
         np.asarray(r_on.u), np.asarray(r_off.u),
-        atol=backend_tol(1e-6, 1e-4),
+        atol=1e-6,
     )
     np.testing.assert_allclose(
         np.asarray(r_on.y), np.asarray(r_off.y),
-        atol=backend_tol(1e-5, 1e-3),
+        atol=1e-5,
     )
     np.testing.assert_allclose(
         np.asarray(r_on.residual), np.asarray(r_off.residual),
-        atol=backend_tol(1e-6, 1e-4),
+        atol=1e-6,
     )
 
 
@@ -93,7 +92,7 @@ def test_flat_oracle_parity(flat_data):
     for i in range(X0.shape[0]):
         ref = gpad_solve_qp(qp, X0[i].astype(np.float64), iterations=200)
         np.testing.assert_allclose(
-            np.asarray(res.u[i]), ref.u, atol=backend_tol(1e-4, 5e-3)
+            np.asarray(res.u[i]), ref.u, atol=1e-4
         )
 
 
@@ -128,62 +127,58 @@ def test_flat_resolver(flat_data):
 
 
 def test_flat_pallas_kernel_matches_xla(flat_data):
-    """The flat paired Pallas kernel (form='mvp' forced through pallas)
-    agrees with the XLA flat path, cold and warm."""
+    """The flat mvp loop (identity block as a scalar multiply) agrees with
+    the dense paired mvp loop and the dual form, cold and warm."""
     qp, data = flat_data
     X0 = _x0(6, qp.n_x, seed=9)
-    cfg_pl = SolverConfig(iterations=60, engine="pallas", form="mvp")
-    cfg_xla = SolverConfig(iterations=60, engine="xla", form="mvp", flat="on")
-    r_pl = solve_batch(data, X0, config=cfg_pl)
-    r_xla = solve_batch(data, X0, config=cfg_xla)
-    np.testing.assert_allclose(np.asarray(r_pl.z), np.asarray(r_xla.z), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(r_pl.y), np.asarray(r_xla.y), atol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(r_pl.residual), np.asarray(r_xla.residual), atol=2e-5
-    )
-    # the flat kernel actually routed (not the dense paired one)
-    from tpu_gpad.solver import kernels
-
-    assert kernels.flat_fits_vmem(data)
-    # warm start through the flat layout mapping
-    w_pl = solve_batch(data, X0, config=cfg_pl, y0=r_xla.y)
-    w_xla = solve_batch(data, X0, config=cfg_xla, y0=r_xla.y)
-    np.testing.assert_allclose(np.asarray(w_pl.u), np.asarray(w_xla.u), atol=2e-5)
-    cold = np.asarray(r_pl.y)
-    assert np.abs(np.asarray(w_pl.y) - cold).max() > 1e-6
+    cfg_flat = SolverConfig(iterations=60, engine="xla", form="mvp", flat="on")
+    cfg_dense = SolverConfig(iterations=60, engine="xla", form="mvp", flat="off")
+    cfg_dual = SolverConfig(iterations=60, engine="xla", form="dual")
+    r_flat = solve_batch(data, X0, config=cfg_flat)
+    for cfg in (cfg_dense, cfg_dual):
+        r = solve_batch(data, X0, config=cfg)
+        np.testing.assert_allclose(np.asarray(r_flat.z), np.asarray(r.z), atol=2e-5)
+        np.testing.assert_allclose(np.asarray(r_flat.y), np.asarray(r.y), atol=2e-5)
+        np.testing.assert_allclose(
+            np.asarray(r_flat.residual), np.asarray(r.residual), atol=2e-5
+        )
+    # warm start through the flat layout
+    w_flat = solve_batch(data, X0, config=cfg_flat, y0=r_flat.y)
+    w_dense = solve_batch(data, X0, config=cfg_dense, y0=r_flat.y)
+    np.testing.assert_allclose(np.asarray(w_flat.u), np.asarray(w_dense.u), atol=2e-5)
+    assert np.abs(np.asarray(w_flat.y) - np.asarray(r_flat.y)).max() > 1e-6
 
 
 def test_flat_pallas_high_precision(flat_data):
-    """bf16x3 through the flat kernel (stacked hi/lo MG_f and GL_s)."""
+    """precision='high' through the flat loop tracks the dense loop."""
     qp, data = flat_data
     X0 = _x0(4, qp.n_x, seed=11)
-    r_pl = solve_batch(
-        data, X0,
-        config=SolverConfig(
-            iterations=60, engine="pallas", form="mvp", precision="high"
-        ),
-    )
-    r_xla = solve_batch(
+    r_flat = solve_batch(
         data, X0,
         config=SolverConfig(
             iterations=60, engine="xla", form="mvp", flat="on", precision="high"
         ),
     )
-    np.testing.assert_allclose(np.asarray(r_pl.u), np.asarray(r_xla.u), atol=1e-4)
+    r_dense = solve_batch(
+        data, X0,
+        config=SolverConfig(
+            iterations=60, engine="xla", form="mvp", flat="off", precision="high"
+        ),
+    )
+    np.testing.assert_allclose(np.asarray(r_flat.u), np.asarray(r_dense.u), atol=1e-4)
 
 
 def test_flat_kernel_off_when_flat_off(flat_data):
-    """flat='off' keeps the dense paired kernel on the pallas path."""
+    """flat='off' runs the dense paired product; both agree."""
+    from tpu_gpad.solver.core import resolve_flat
+
     qp, data = flat_data
     X0 = _x0(3, qp.n_x, seed=13)
-    r_off = solve_batch(
-        data, X0,
-        config=SolverConfig(iterations=40, engine="pallas", form="mvp", flat="off"),
-    )
-    r_on = solve_batch(
-        data, X0,
-        config=SolverConfig(iterations=40, engine="pallas", form="mvp"),
-    )
+    cfg_off = SolverConfig(iterations=40, form="mvp", flat="off")
+    cfg_on = SolverConfig(iterations=40, form="mvp")
+    assert not resolve_flat(data, cfg_off) and resolve_flat(data, cfg_on)
+    r_off = solve_batch(data, X0, config=cfg_off)
+    r_on = solve_batch(data, X0, config=cfg_on)
     np.testing.assert_allclose(np.asarray(r_on.u), np.asarray(r_off.u), atol=2e-5)
 
 

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 import tpu_gpad
-from conftest import backend_tol
 from tpu_gpad import problems
 from tpu_gpad.condense import (
     condense,
@@ -89,7 +88,7 @@ def test_ltv_solve_matches_exact_qp(seed):
             continue
         checked += 1
         err = np.abs(np.asarray(res.u[i]) - sol.z[: qp.n_u]).max()
-        assert err < backend_tol(5e-4, 5e-3), (seed, i, err)
+        assert err < 5e-4, (seed, i, err)
     assert checked >= 3
 
 
@@ -132,7 +131,7 @@ def test_ltv_tracking_and_rate_compose():
     sol = solve_condensed_qp(qp, p)
     assert sol.status == "optimal"
     err = np.abs(np.asarray(res.u[0]) - sol.z[: qp.n_u]).max()
-    assert err < backend_tol(5e-4, 5e-3)
+    assert err < 5e-4
 
 
 def test_ltv_guards():
@@ -199,7 +198,7 @@ def test_stage_weights_solve_matches_exact_qp(rng):
             continue
         checked += 1
         err = np.abs(np.asarray(res.u[i]) - sol.z[: qp.n_u]).max()
-        assert err < backend_tol(5e-4, 5e-3), (i, err)
+        assert err < 5e-4, (i, err)
     assert checked >= 3
 
 

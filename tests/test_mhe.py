@@ -9,7 +9,6 @@ squares). Then the constrained cases do what the filter cannot.
 
 import numpy as np
 
-from conftest import backend_tol
 import pytest
 
 from tpu_gpad.estimator import kalman_gain
@@ -163,12 +162,9 @@ def test_batched_windows_match_streaming():
             np.stack(xbars)[i : i + 1], np.stack(Ys)[i : i + 1],
             np.stack(Us)[i : i + 1],
         )
-        # chip: batch-4 vs batch-1 solves are different fp32 programs
-        # (reduction orders differ) and diverge ~1e-3 at 300 restart
-        # iterations (relu boundaries) — the standard backend_tol case
         np.testing.assert_allclose(
             np.asarray(x_hat)[i], np.asarray(xi)[0],
-            atol=backend_tol(1e-5, 5e-3)
+            atol=1e-5
         )
 
 
@@ -194,7 +190,7 @@ def test_stagewise_engine_matches_condensed():
     xc, rc = est_c.solve_window(np.stack(xbars), np.stack(Ys), np.stack(Us))
     xs_, rs = est_s.solve_window(np.stack(xbars), np.stack(Ys), np.stack(Us))
     np.testing.assert_allclose(
-        np.asarray(xs_), np.asarray(xc), atol=backend_tol(5e-4, 2e-3)
+        np.asarray(xs_), np.asarray(xc), atol=5e-4
     )
     # streaming interface rides the same engine (incl. warm starts)
     _, ys, us = _simulate(16, seed=3)
@@ -206,7 +202,7 @@ def test_stagewise_engine_matches_condensed():
         xh_c = est_c2.update(ys[k], us[k - 1] if k > 0 else None)
         xh_s = est_s2.update(ys[k], us[k - 1] if k > 0 else None)
         np.testing.assert_allclose(
-            xh_s, xh_c, atol=backend_tol(1e-3, 5e-3)
+            xh_s, xh_c, atol=1e-3
         )
 
 
@@ -227,14 +223,13 @@ def test_stagewise_long_window_kalman_equivalence():
     )
     assert np.all(np.asarray(res.residual) < 1e-3)
     np.testing.assert_allclose(
-        np.asarray(x_hat)[0], kf[-1], atol=backend_tol(2e-3, 5e-3)
+        np.asarray(x_hat)[0], kf[-1], atol=2e-3
     )
 
 
 def test_mhe_auto_routes_by_memory_backstop():
     """MHE auto routing is the O(T^2 n_x^2) MEMORY backstop only: the
-    MPC throughput crossover does not transfer to small-state MHE
-    (chip-measured 0.048x at T=180 n_x=2 — MHE_STAGEWISE.json), so a
+    MPC throughput crossover does not transfer to small-state MHE, so a
     long window with tiny state stays condensed, and only walls of
     condensed operands route stage-wise."""
     # T=180, n_x=2: condensed operands ~4 MB — condensed stays

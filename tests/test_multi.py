@@ -1,5 +1,5 @@
 """Multi-plant solving: P different QPs in one vmapped device call (the
-TPU-native replacement for the reference's per-dataset host loop,
+batched replacement for the reference's per-dataset host loop,
 main.cu:104-108 over inputs_manysets)."""
 
 import dataclasses

@@ -8,19 +8,9 @@ and the parent asserts parity with its own single-process solve
 (SURVEY.md:250-252 — the fake-backend distributed test the reference lacks).
 """
 
-import os
-
 import numpy as np
-import pytest
-
-import jax
 
 from tpu_gpad.parallel.mp_worker import run_multiprocess_check
-
-pytestmark = pytest.mark.skipif(
-    os.environ.get("TPU_GPAD_TEST_ON_TPU"),
-    reason="multi-process leg is CPU-only (one real chip, no second host)",
-)
 
 
 def test_two_process_distributed(tmp_path):

@@ -156,8 +156,7 @@ def test_native_stagewise_solve_matches_xla():
                         (battery_c, 60)):
         data = build_stagewise(prob, iterations=iters)
         x0 = rng.uniform(-0.3, 0.3, size=prob.n_x).astype(np.float32)
-        ref = solve_stagewise(data, x0[None], iterations=iters,
-                              engine="xla")
+        ref = solve_stagewise(data, x0[None], iterations=iters)
         u0, zu, y, resid, gap = native.solve_stagewise_fixed(
             data, x0, iters)
         np.testing.assert_allclose(u0, np.asarray(ref.u[0]), atol=1e-6)

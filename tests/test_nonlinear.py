@@ -13,7 +13,6 @@ import jax.numpy as jnp
 import pytest
 
 import tpu_gpad
-from conftest import backend_tol
 from tpu_gpad import problems
 from tpu_gpad.condense import condense, prediction_matrices
 from tpu_gpad.nonlinear import NMPC, linearize, rk4, rollout, simulate_nonlinear
@@ -70,7 +69,7 @@ def test_affine_offset_solve_matches_exact_qp():
             continue
         checked += 1
         err = np.abs(np.asarray(res.u[i]) - sol.z[: qp.n_u]).max()
-        assert err < backend_tol(5e-4, 5e-3), (i, err)
+        assert err < 5e-4, (i, err)
     assert checked >= 3
 
 
@@ -107,10 +106,7 @@ def test_linearize_exact_on_linear_dynamics(rng):
     xs = rng.normal(size=(4, 3)).astype(np.float32)
     us = rng.normal(size=(4, 2)).astype(np.float32)
     As, Bs, cs = linearize(f, xs, us)
-    # TPU: f itself evaluates its matmuls at default (bf16) precision,
-    # so the residual c genuinely captures that model's fp error (worst
-    # observed on chip: 8.4e-3 — bf16 eps times O(1) operands)
-    tol = backend_tol(1e-5, 2e-2)
+    tol = 1e-5
     for k in range(4):
         np.testing.assert_allclose(As[k], A, atol=tol)
         np.testing.assert_allclose(Bs[k], B, atol=tol)
@@ -189,7 +185,7 @@ def test_nmpc_rate_limits():
     )
     X, U = simulate_nonlinear(f, ctrl, np.array([2.6, 0.0]), 40, x_ref=UPRIGHT)
     dU = np.diff(np.concatenate([[np.zeros(1)], U], axis=0), axis=0)
-    assert np.abs(dU).max() <= 1.0 + backend_tol(1e-3, 1e-2)
+    assert np.abs(dU).max() <= 1.0 + 1e-3
 
 
 def test_nmpc_reset_and_guards():

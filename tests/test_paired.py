@@ -7,7 +7,6 @@ import pytest
 
 import tpu_gpad
 
-from conftest import backend_tol
 from tpu_gpad import problems
 from tpu_gpad.condense import condense, dualize, find_pairing
 from tpu_gpad.solver import SolverConfig, solve_batch
@@ -50,14 +49,15 @@ def test_dualize_paired_shapes(battery_qp):
 
 
 @pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_paired_matches_dense(battery_qp, engine):
+def test_paired_matches_dense(battery_qp, engine, interpret_kernel):
+    """The paired layout (through ``engine``: "pallas" is the fused dual
+    kernel, interpreted here) against the dense layout's XLA loop."""
     qp = battery_qp
     X0 = _x0(12, qp.n_x)
     dd = dualize(qp, iterations=100)
     dp = dualize(qp, iterations=100, paired=True)
-    cfg = SolverConfig(iterations=100, engine=engine)
-    rd = solve_batch(dd, X0, config=cfg)
-    rp = solve_batch(dp, X0, config=cfg)
+    rd = solve_batch(dd, X0, config=SolverConfig(iterations=100, engine="xla"))
+    rp = solve_batch(dp, X0, config=SolverConfig(iterations=100, engine=engine))
     np.testing.assert_allclose(np.asarray(rp.z), np.asarray(rd.z), atol=3e-5)
     np.testing.assert_allclose(np.asarray(rp.u), np.asarray(rd.u), atol=3e-5)
     np.testing.assert_allclose(
@@ -125,25 +125,19 @@ def test_dual_form_matches_mvp(battery_qp):
     dp = dualize(qp, iterations=100, paired=True)
     cfg_mvp = SolverConfig(iterations=100, form="mvp")
     cfg_dual = SolverConfig(iterations=100, form="dual")
-    # form auto is backend-calibrated: flat-mvp on TPU (measured >= dual
-    # at every bundled shape, DESIGN.md 8), dual elsewhere
-    import jax
-
-    expected = "mvp" if jax.default_backend() == "tpu" else "dual"
-    assert resolve_form(dp, SolverConfig(iterations=100)) == expected
+    # form auto takes the dual form wherever it is available
+    assert resolve_form(dp, SolverConfig(iterations=100)) == "dual"
     rm = solve_batch(dp, X0, config=cfg_mvp)
     rd = solve_batch(dp, X0, config=cfg_dual)
-    # TPU: 100 iterations of 6-pass-fp32 relu-boundary divergence between
-    # the two (algebraically identical) forms — see conftest.backend_tol
     np.testing.assert_allclose(
-        np.asarray(rd.u), np.asarray(rm.u), atol=backend_tol(3e-5, 2e-3))
+        np.asarray(rd.u), np.asarray(rm.u), atol=3e-5)
     np.testing.assert_allclose(
-        np.asarray(rd.z), np.asarray(rm.z), atol=backend_tol(3e-5, 2e-3))
+        np.asarray(rd.z), np.asarray(rm.z), atol=3e-5)
     np.testing.assert_allclose(
-        np.asarray(rd.y), np.asarray(rm.y), atol=backend_tol(3e-4, 5e-3))
+        np.asarray(rd.y), np.asarray(rm.y), atol=3e-4)
     np.testing.assert_allclose(
         np.asarray(rd.residual), np.asarray(rm.residual),
-        atol=backend_tol(3e-5, 2e-3),
+        atol=3e-5,
     )
 
 
@@ -157,7 +151,7 @@ def test_dual_form_requires_paired(battery_qp):
     assert r.u.shape == (2, battery_qp.n_u)
 
 
-def test_dual_form_pallas_matches_xla(battery_qp):
+def test_dual_form_pallas_matches_xla(battery_qp, interpret_kernel):
     dp = dualize(battery_qp, iterations=100, paired=True)
     X0 = _x0(10, battery_qp.n_x, seed=31)
     cfg_x = SolverConfig(iterations=100, form="dual", engine="xla")

@@ -111,7 +111,7 @@ def test_scenario_plan_extraction():
     assert not np.allclose(plans[0][1:], plans[1][1:])
 
 
-def test_batch_and_engines():
+def test_batch_and_engines(interpret_kernel):
     """The stacked QP runs through the batched fused-kernel path."""
     qps = [tpu_gpad.condense(p) for p in _scenario_problems(S=2)]
     qp_rob = scenario_qp(qps)
@@ -293,9 +293,8 @@ def test_scenario_stagewise_matches_condensed():
     data = build_stagewise(swp, iterations=3000)
     X = jnp.asarray(
         scenario_stagewise_x0(x0, S)[None].astype(np.float32))
-    from conftest import backend_tol
-
-    eps = backend_tol(1e-6, 1e-5)  # chip fp32 residual floor (DESIGN 4b)
+    
+    eps = 1e-6  # chip fp32 residual floor (DESIGN 4b)
     res = solve_stagewise(
         data, X, mode="eps", eps_g=eps, eps_V=eps, iterations=3000,
         restart=True)
@@ -304,14 +303,14 @@ def test_scenario_stagewise_matches_condensed():
     # every scenario applies the same first move (non-anticipativity)
     for s in range(1, S):
         np.testing.assert_allclose(plans[s, 0], plans[0, 0],
-                                   atol=backend_tol(5e-5, 5e-4))
+                                   atol=5e-5)
     np.testing.assert_allclose(plans[0, 0], u_shared,
-                               atol=backend_tol(2e-3, 5e-3))
+                               atol=2e-3)
     # per-scenario tails match the condensed extraction
     for s in range(S):
         tail_c = scenario_plan(exact.z, s, n_u, N, S)
         np.testing.assert_allclose(plans[s], tail_c,
-                                   atol=backend_tol(2e-3, 5e-3))
+                                   atol=2e-3)
 
 
 def test_scenario_stagewise_weights_and_validation():

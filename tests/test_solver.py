@@ -5,7 +5,6 @@ import pytest
 
 import jax.numpy as jnp
 
-from conftest import backend_tol
 from tpu_gpad import problems
 from tpu_gpad.condense import condense, dualize
 from tpu_gpad.problems.battery import default_x0
@@ -55,7 +54,7 @@ def test_batch_matches_single(battery_setup):
         single = solve(data, jnp.asarray(X0[i]))
         np.testing.assert_allclose(
             np.asarray(batch.u[i]), np.asarray(single.u[0]),
-            atol=backend_tol(1e-6, 5e-3),
+            atol=1e-6,
         )
 
 

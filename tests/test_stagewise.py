@@ -11,7 +11,6 @@ SURVEY.md section 5)."""
 import numpy as np
 import pytest
 
-from conftest import backend_tol
 
 from tpu_gpad import problems
 from tpu_gpad.condense import condense, dualize, lipschitz_constant
@@ -35,9 +34,9 @@ def test_matches_condensed_engine_iterate_for_iterate():
     X0 = rng.uniform(-0.4, 0.4, size=(16, prob.n_x)).astype(np.float32)
     res_c = solve_batch(data_c, X0)
     res_s = solve_stagewise(data_s, X0)
-    np.testing.assert_allclose(res_s.u, res_c.u, atol=backend_tol(2e-6, 5e-3))
+    np.testing.assert_allclose(res_s.u, res_c.u, atol=2e-6)
     # full input trajectory too, not just the first move
-    np.testing.assert_allclose(res_s.z, res_c.z, atol=backend_tol(2e-6, 5e-3))
+    np.testing.assert_allclose(res_s.z, res_c.z, atol=2e-6)
 
 
 def test_converges_to_exact_qp():
@@ -80,7 +79,7 @@ def test_ltv_dynamics():
     X0 = rng.uniform(-0.5, 0.5, size=(6, prob.n_x)).astype(np.float32)
     res_c = solve_batch(data_c, X0)
     res_s = solve_stagewise(data_s, X0)
-    np.testing.assert_allclose(res_s.u, res_c.u, atol=backend_tol(5e-6, 5e-3))
+    np.testing.assert_allclose(res_s.u, res_c.u, atol=5e-6)
 
 
 def test_terminal_weight_and_per_stage_bounds():
@@ -106,7 +105,7 @@ def test_terminal_weight_and_per_stage_bounds():
     X0 = rng.uniform(-0.5, 0.5, size=(5, n)).astype(np.float32)
     np.testing.assert_allclose(
         solve_stagewise(data_s, X0).u, solve_batch(data_c, X0).u,
-        atol=backend_tol(5e-6, 5e-3),
+        atol=5e-6,
     )
 
 
@@ -129,7 +128,7 @@ def test_general_polytopes():
     X0 = rng.uniform(-0.3, 0.3, size=(6, 3)).astype(np.float32)
     np.testing.assert_allclose(
         solve_stagewise(data_s, X0).u, solve_batch(data_c, X0).u,
-        atol=backend_tol(5e-6, 5e-3),
+        atol=5e-6,
     )
 
 
@@ -320,7 +319,7 @@ def test_eps_mode_matches_condensed_eps_iterations():
     np.testing.assert_array_equal(
         np.asarray(res_s.iterations), np.asarray(res_c.iterations)
     )
-    np.testing.assert_allclose(res_s.u, res_c.u, atol=backend_tol(1e-5, 5e-3))
+    np.testing.assert_allclose(res_s.u, res_c.u, atol=1e-5)
 
 
 def test_restart_matches_condensed_restart():
@@ -338,8 +337,8 @@ def test_restart_matches_condensed_restart():
         data_c, X0,
         config=SolverConfig(iterations=150, engine="xla", restart=True),
     )
-    np.testing.assert_allclose(res_s.u, res_c.u, atol=backend_tol(5e-5, 5e-3))
-    np.testing.assert_allclose(res_s.z, res_c.z, atol=backend_tol(5e-5, 5e-3))
+    np.testing.assert_allclose(res_s.u, res_c.u, atol=5e-5)
+    np.testing.assert_allclose(res_s.z, res_c.z, atol=5e-5)
 
 
 def test_restart_speeds_eps_convergence():
@@ -401,27 +400,27 @@ def test_auto_solver_routes_by_operand_size():
     rng = np.random.default_rng(11)
     X0 = rng.uniform(-0.3, 0.3, size=(4, prob_small.n_x)).astype(np.float32)
     np.testing.assert_allclose(
-        np.asarray(fn(X0).u), np.asarray(fn2(X0).u), atol=backend_tol(5e-4, 5e-3)
+        np.asarray(fn(X0).u), np.asarray(fn2(X0).u), atol=5e-4
     )
     assert condensed_operand_mb(prob_small) > 0
 
 
 def test_auto_routing_table_pins_measured_crossover():
-    """The STAGEWISE.json chip crossover, encoded: every measured row
-    routes to its measured-fastest engine (VERDICT r04 item 1)."""
+    """The routing table of ``stagewise_preferred`` on the ladder rows it
+    was tuned on (thresholds queued for re-measurement on the GPU)."""
     from tpu_gpad.stagewise import stagewise_preferred
 
-    # (n_cells, N, batch, expected) for all 9 measured rows
+    # (n_cells, N, batch, expected) for the 9 ladder rows
     table = [
-        (8, 10, 1024, False),   # condensed 5.4x
-        (8, 60, 256, False),    # condensed 2.3x
-        (8, 120, 256, False),   # condensed 1.35x
-        (8, 240, 128, True),    # stage-wise 1.41x
-        (30, 200, 64, True),    # stage-wise 1.9x (also past the backstop)
-        (8, 60, 4096, True),    # stage-wise 1.09x (kernel-carried)
-        (8, 120, 4096, True),   # stage-wise 1.18x (kernel-carried)
-        (8, 240, 4096, True),   # stage-wise 1.30x
-        (30, 200, 1024, True),  # stage-wise 3.2x
+        (8, 10, 1024, False),
+        (8, 60, 256, False),
+        (8, 120, 256, False),
+        (8, 240, 128, True),
+        (30, 200, 64, True),    # also past the memory backstop
+        (8, 60, 4096, True),    # large-batch branch
+        (8, 120, 4096, True),   # large-batch branch
+        (8, 240, 4096, True),
+        (30, 200, 1024, True),
     ]
     for n, N, B, expect in table:
         prob = problems.battery(n, N)
@@ -430,9 +429,8 @@ def test_auto_routing_table_pins_measured_crossover():
     # batch-agnostic calls keep condensed below the any-batch crossover
     assert not stagewise_preferred(problems.battery(8, 120))[0]
     assert stagewise_preferred(problems.battery(8, 240))[0]
-    # tiny per-stage state: the throughput branches are OFF (measured:
-    # condensed 21x at (n+p)=4 far past N=170, MHE_STAGEWISE.json) —
-    # only the memory backstop routes
+    # tiny per-stage state: the throughput branches are OFF — only the
+    # memory backstop routes
     got, why = stagewise_preferred(problems.battery(3, 240),
                                    batch_hint=4096)
     assert not got and "per-stage state too small" in why
@@ -524,24 +522,22 @@ def test_runtime_q_lin_matches_baked_x_ref():
     q_lin = -np.einsum("ij,kj->ki", np.asarray(prob.Q, float), ref)
     res_b = solve_stagewise(baked, X0)
     res_q = solve_stagewise(plain, X0, q_lin=jnp.asarray(q_lin, jnp.float32))
-    # on chip the runtime path's fp32 device dtl/qoff einsums diverge
-    # from the offline f64 constants at relu boundaries (backend_tol)
     np.testing.assert_allclose(
         np.asarray(res_q.u), np.asarray(res_b.u),
-        atol=backend_tol(2e-6, 5e-5))
+        atol=2e-6)
     np.testing.assert_allclose(
         np.asarray(res_q.y), np.asarray(res_b.y),
-        atol=backend_tol(5e-6, 1e-4))
+        atol=5e-6)
     # per-example q_lin: scenario 0 tracks ref, scenario 1 tracks zero
     qb = np.stack([q_lin, np.zeros_like(q_lin)]).astype(np.float32)
     res_mix = solve_stagewise(plain, X0[:2], q_lin=jnp.asarray(qb))
     res_z = solve_stagewise(plain, X0[1:2])
     np.testing.assert_allclose(
         np.asarray(res_mix.u[0]), np.asarray(res_b.u[0]),
-        atol=backend_tol(2e-6, 5e-5))
+        atol=2e-6)
     np.testing.assert_allclose(
         np.asarray(res_mix.u[1]), np.asarray(res_z.u[0]),
-        atol=backend_tol(2e-6, 5e-5))
+        atol=2e-6)
 
 
 def test_runtime_c_matches_baked_affine():
@@ -562,10 +558,10 @@ def test_runtime_c_matches_baked_affine():
     res_c = solve_stagewise(plain, X0, c=jnp.asarray(cs, jnp.float32))
     np.testing.assert_allclose(
         np.asarray(res_c.u), np.asarray(res_b.u),
-        atol=backend_tol(2e-6, 5e-5))
+        atol=2e-6)
     np.testing.assert_allclose(
         np.asarray(res_c.z), np.asarray(res_b.z),
-        atol=backend_tol(2e-6, 5e-5))
+        atol=2e-6)
     # eps mode rides the same per-solve constants (incl. _rollout's c)
     res_be = solve_stagewise(baked, X0, mode="eps", eps_g=1e-5,
                              eps_V=1e-5, iterations=60)
@@ -574,16 +570,15 @@ def test_runtime_c_matches_baked_affine():
                              c=jnp.asarray(cs, jnp.float32))
     np.testing.assert_allclose(
         np.asarray(res_ce.u), np.asarray(res_be.u),
-        atol=backend_tol(2e-6, 5e-5))
-    if backend_tol(0, 1) == 0:  # iteration-count equality is CPU-exact
-        np.testing.assert_allclose(
-            np.asarray(res_ce.iterations), np.asarray(res_be.iterations))
+        atol=2e-6)
+    np.testing.assert_allclose(
+        np.asarray(res_ce.iterations), np.asarray(res_be.iterations))
     # associative executor sees the same effective constants
     res_ca = solve_stagewise(plain, X0, scan="associative",
                              c=jnp.asarray(cs, jnp.float32))
     np.testing.assert_allclose(
         np.asarray(res_ca.u), np.asarray(res_b.u),
-        atol=backend_tol(5e-6, 1e-4))
+        atol=5e-6)
 
 
 def test_multi_plant_stagewise_solve():
@@ -606,11 +601,10 @@ def test_multi_plant_stagewise_solve():
     X = jnp.asarray(rng.uniform(-0.3, 0.3, size=(3, 3)).astype(np.float32))
     res = solve_stagewise_multi(st, X, iterations=60)
     for p in range(3):
-        ref = solve_stagewise(datas[p], X[p][None], iterations=60,
-                              engine="xla")
+        ref = solve_stagewise(datas[p], X[p][None], iterations=60)
         np.testing.assert_allclose(
             np.asarray(res.u[p]), np.asarray(ref.u[0]),
-            atol=backend_tol(1e-6, 5e-5))
+            atol=1e-6)
     # inner per-plant batches + eps mode + warm start
     X2 = jnp.asarray(
         rng.uniform(-0.3, 0.3, size=(3, 4, 3)).astype(np.float32))
@@ -719,11 +713,11 @@ def test_affine_offsets_match_condensed():
     X0 = rng.uniform(-0.3, 0.3, size=(6, 3)).astype(np.float32)
     res_c = solve_batch(data_c, X0)
     res_s = solve_stagewise(data_s, X0, scan="sequential")
-    np.testing.assert_allclose(res_s.u, res_c.u, atol=backend_tol(5e-6, 5e-3))
-    np.testing.assert_allclose(res_s.z, res_c.z, atol=backend_tol(5e-6, 5e-3))
+    np.testing.assert_allclose(res_s.u, res_c.u, atol=5e-6)
+    np.testing.assert_allclose(res_s.z, res_c.z, atol=5e-6)
     # the associative executor agrees too
     res_a = solve_stagewise(data_s, X0, scan="associative")
-    np.testing.assert_allclose(res_a.u, res_c.u, atol=backend_tol(5e-6, 5e-3))
+    np.testing.assert_allclose(res_a.u, res_c.u, atol=5e-6)
     # and per-stage LTV offsets
     prob2 = dataclasses.replace(
         problems.random_ltv(n_x=3, n_u=2, horizon=5, seed=8),
@@ -736,7 +730,7 @@ def test_affine_offsets_match_condensed():
     X2 = rng.uniform(-0.4, 0.4, size=(4, 3)).astype(np.float32)
     np.testing.assert_allclose(
         solve_stagewise(d_s2, X2).u, solve_batch(d_c2, X2).u,
-        atol=backend_tol(5e-6, 5e-3),
+        atol=5e-6,
     )
 
 
@@ -757,7 +751,7 @@ def test_fixed_reference_matches_condensed_tracking():
     ).astype(np.float32)
     res_c = solve_batch(data_c, P)
     res_s = solve_stagewise(data_s, X0)
-    np.testing.assert_allclose(res_s.u, res_c.u, atol=backend_tol(5e-6, 5e-3))
+    np.testing.assert_allclose(res_s.u, res_c.u, atol=5e-6)
     # the tracked closed loop actually goes to the setpoint
     x = np.asarray(X0[0], dtype=np.float32)
     A = np.asarray(prob.A, dtype=np.float32)

@@ -155,7 +155,7 @@ def test_per_stage_bounds_compose_with_soft_state():
     assert np.isfinite(np.asarray(res.u)).all()
 
 
-def test_tube_composes_with_condense_and_engines():
+def test_tube_composes_with_condense_and_engines(interpret_kernel):
     prob = problems.double_integrator(horizon=6)
     tight = tube_tightened_problem(prob, np.array([0.02, 0.02]),
                                    K=lqr_gain(prob))

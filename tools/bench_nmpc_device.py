@@ -1,23 +1,21 @@
-"""Chip ms/sample ladder for plain-NMPC device condensation.
-
-Makes DESIGN.md section 9's plain-NMPC ladder and the README's NMPC
-speedup claims traceable to a committed artifact (VERDICT round 2
-item 2), the way ROBUST_DEVICE.json does for the robust stack. Four rungs
-on the pendulum swing-up (the `examples/nonlinear_pendulum.py` setup):
+"""GPU ms/sample ladder for plain-NMPC device condensation (the robust
+stack's twin is ``bench_robust_device.py``). Four rungs on the pendulum
+swing-up (the `examples/nonlinear_pendulum.py` setup):
 
   1. host      — float64 NumPy condensation per SQP pass (`NMPC`)
   2. device    — `NMPC(device_condense=True)`: rollout + Jacobians +
                  condensation + dualization + GPAD solve as ONE jitted
                  device program per sample
   3. scanned   — `simulate_nonlinear_device`: the whole closed loop as
-                 one `lax.scan` device call (one RPC per TRAJECTORY;
+                 one `lax.scan` device call (one call per TRAJECTORY;
                  the nonlinear analogue of the reference's 1000-sample
                  `gpad.m` loop)
   4. batch64   — `plan_batch` over 64 plants, host vs device (the
                  fleet amortization rung)
 
 All rungs must land the same swing-up (parity asserted) before any
-timing is trusted. Writes NMPC_DEVICE.json. Run on the real chip:
+timing is trusted. Writes NMPC_DEVICE.json (or ``--out``). Run on a
+machine with the GPU:
     python tools/bench_nmpc_device.py
 """
 

@@ -1,15 +1,13 @@
-"""Chip ms/sample for the robust (multi-scenario) device-condensation path
-(round-2 VERDICT item 4's done-criterion).
+"""GPU ms/sample for the robust (multi-scenario) device-condensation path.
 
 Runs the 3-model pendulum swing-up closed loop with ``RobustNMPC`` two
 ways — host float64 scenario condensation per SQP pass vs
 ``device_condense=True`` (rollouts + linearization + scenario stack +
 GPAD solve as ONE jitted device program per pass) — and records the
-ms/sample ladder next to DESIGN.md §9's plain-NMPC 158→75→20 numbers.
-The two paths must land the same swing-up (parity asserted) before any
+ms/sample of each. The two paths must land the same swing-up (parity asserted) before any
 timing is trusted.
 
-Writes ROBUST_DEVICE.json. Run on the real chip:
+Writes ROBUST_DEVICE.json (or ``--out``). Run on a machine with the GPU:
     python tools/bench_robust_device.py
 """
 

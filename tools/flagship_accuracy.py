@@ -1,32 +1,19 @@
 """u* accuracy endgame at the reference's 30x30 flagship shape
-(VERDICT r04 item 5) -> FLAGSHIP_ACCURACY.json.
+-> FLAGSHIP_ACCURACY.json.
 
-Two findings this tool commits:
+Measures every recipe against the KKT-certified optimum
+(``qp.certified_optimum``: polish from a deeply-converged device iterate,
+status-checked) rather than ``solve_condensed_qp``'s capped active-set
+method, whose 500-pivot default can stop short of the optimum at m=3660.
 
-1. ORACLE POST-MORTEM: the earlier RESTART_EFFECT numbers at 30x30
-   (fixed-100 u* err 0.097->0.115, "restart doesn't fix it") measured
-   the ORACLE's error, not the solver's. ``solve_condensed_qp``'s
-   active-set method adds/drops one row per pivot; at m=3660 its default
-   500-pivot cap returned iterates with status="max_iter" sitting ~2.0
-   ABOVE the optimal objective and 0.08-0.10 away in u — while both the
-   device eps-solves and the f64 polish reach the SAME certified optimum
-   (cond(H) = 1.24: the minimizer is unique). This tool measures every
-   recipe against the KKT-certified optimum (``qp.certified_optimum``:
-   polish from a deeply-converged device iterate, status-checked).
+The recipe ladder: fixed budgets, eps-mode with restart, and the f64
+active-set polish after a converged device solve, each with its u* error
+and throughput. Device fp32 plateaus at an error no iteration count
+removes (the eps test itself floors near 1e-5 on a few scenarios); the
+f64 polish is the route to u* <= 1e-4. The reference's own fixed-100
+contract (acceldualgrad.m:6,39) leaves a large error at this shape.
 
-2. THE RECIPE LADDER: what actually delivers what accuracy, and at what
-   throughput. Chip-measured outcome (committed in the JSON): device
-   fp32 plateaus at ~9e-4 median / ~3e-3 max u error (fixed-1000 ==
-   fixed-4000 == eps-2e-5: more iterations do not help; the eps test
-   itself cannot be tightened past ~2e-5 because the fp32 residual/gap
-   evaluation floors there — 2/256 scenarios sit at resid 1.08e-5
-   forever). u* <= 1e-4 therefore needs the f64 active-set polish after
-   a converged device solve: exact to ~1e-13 at a measured host cost per
-   sample. The reference's own fixed-100 contract (acceldualgrad.m:6,39)
-   leaves 0.03-0.3 error at this shape — "beating the reference" here
-   means having a path to the optimum at all.
-
-Run on the real chip:  python tools/flagship_accuracy.py
+Run on a machine with the GPU:  python tools/flagship_accuracy.py
 """
 
 import json
@@ -93,9 +80,9 @@ def main():
         "u_dist_from_certified": (
             float(np.abs(legacy.z[: qp.n_u] - cert[0]).max())
             if 0 in cert else None),
-        "note": "solve_condensed_qp default 500-pivot cap at m=3660; "
-                "this distance is what RESTART_EFFECT r3/r4 reported as "
-                "solver error",
+        "note": "solve_condensed_qp default 500-pivot cap at m=3660: "
+                "this distance is the capped oracle's error, not the "
+                "solver's",
     }
     print(json.dumps(out["legacy_oracle_postmortem"]), flush=True)
 

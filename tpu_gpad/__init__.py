@@ -1,18 +1,17 @@
-"""tpu_gpad: a TPU-native GPAD engine for embedded linear MPC.
+"""tpu_gpad: a batched GPAD engine for embedded linear MPC on the GPU.
 
 Implements the accelerated dual gradient-projection (GPAD) algorithm of
-Patrinos & Bemporad for condensed linear-MPC QPs, designed from scratch for
-TPU hardware:
+Patrinos & Bemporad for condensed linear-MPC QPs in JAX:
 
 - offline condensation of LTI plant models into the dual-QP constants
   (``M_G, g_P, G_L, p_D, L`` and the theta/beta momentum schedules),
 - a jitted GPAD iteration with both fixed-iteration (hard real-time) and
   epsilon-optimality termination modes,
-- scenario batching that turns the two hot matrix-vector products into MXU
-  matmuls, with a fused Pallas kernel keeping solver state in VMEM,
+- scenario batching that turns the hot matrix-vector products into
+  matmuls, with a fused Pallas (Triton) kernel that keeps the dual loop's
+  state in registers on the GPU,
 - the paper's O(N) non-condensed (stage-wise) engine for long horizons —
-  Riccati-precomputed LQR oracle behind four chip-routed executors
-  (whole-VMEM fused kernel, HBM-streamed fused kernel, parallel-prefix
+  Riccati-precomputed LQR oracle behind two executors (parallel-prefix
   and sequential scans), with estimation (MHE), differentiation, robust
   scenario stacks and multi-plant batching riding it past the
   condensation wall,

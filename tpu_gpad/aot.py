@@ -1,21 +1,20 @@
 """AOT solver export: serialized StableHLO artifacts for serving.
 
 The reference ships a prebuilt solver binary (`build/main`, SURVEY.md C10)
-compiled for one GPU architecture. The TPU-native analogue is
-``jax.export``: trace + lower the jitted solve once, serialize the
-StableHLO (with the problem constants baked in), and reload it later —
-in a process that never imports ``tpu_gpad`` or re-traces anything — via
-``load_solver``. One artifact = one deployed controller.
+compiled for one GPU architecture. The JAX analogue is ``jax.export``:
+trace + lower the jitted solve once, serialize the StableHLO (with the
+problem constants baked in), and reload it later — in a process that
+never imports ``tpu_gpad`` or re-traces anything — via ``load_solver``. One artifact = one deployed controller.
 
 Two batch conventions:
 
 - ``batch_size=None`` (default): the batch dimension is exported
-  SYMBOLIC (any batch size at call time). Symbolic shapes cannot flow
-  through the Pallas kernels' static grids, so the artifact uses the XLA
-  engine.
-- ``batch_size=B``: concrete shapes; the engine resolves exactly as a
-  live ``solve_batch`` would (fused Pallas kernels on TPU), at the cost
-  of serving that one batch size only.
+  SYMBOLIC (any batch size at call time).
+- ``batch_size=B``: concrete shapes, serving that one batch size only.
+
+Either way the artifact runs the XLA engine: ``jax.export`` gives no
+compatibility guarantee for the fused Triton kernel's custom call and
+refuses to serialize it.
 
 The exported callable returns the ``SolveResult`` fields as a plain dict
 (pytree-serialization-friendly).
@@ -48,10 +47,8 @@ def export_solver(
     """
     from jax import export as jexport
 
+    config = dataclasses.replace(config, engine="xla")
     if batch_size is None:
-        # symbolic batch: any B at call time; Pallas grids need static
-        # shapes, so pin the XLA engine
-        config = dataclasses.replace(config, engine="xla")
         (b,) = jexport.symbolic_shape("b")
         x_spec = jax.ShapeDtypeStruct((b, data.n_x), jnp.float32)
     else:
@@ -104,28 +101,25 @@ def export_stagewise_solver(
     long-horizon controller artifact with the O(N) Riccati constants
     baked in (``StagewiseData`` from ``build_stagewise``).
 
-    Same two batch conventions: symbolic batch pins the XLA stage-wise
-    executor (the fused kernel's grid and the measured routing rules
-    need a concrete B); a concrete ``batch_size`` resolves routing
-    exactly as a live ``solve_stagewise`` would."""
+    Same two batch conventions: symbolic batch pins the sequential sweeps
+    (the scan routing rule needs a concrete B); a concrete ``batch_size``
+    resolves routing exactly as a live ``solve_stagewise`` would."""
     from jax import export as jexport
 
     from tpu_gpad.stagewise import solve_stagewise
 
-    engine, scan = "auto", "auto"
+    scan = "auto"
     if batch_size is None:
-        # symbolic batch: no branch on B is possible, so pin the XLA
-        # executor with sequential sweeps (the batch-dependent kernel
-        # and associative routing rules need a concrete B)
-        engine, scan = "xla", "sequential"
+        # symbolic batch: no branch on B is possible, so pin the
+        # sequential sweeps (the associative rule needs a concrete B)
+        scan = "sequential"
         (b,) = jexport.symbolic_shape("b")
         x_spec = jax.ShapeDtypeStruct((b, data.n_x), jnp.float32)
     else:
         x_spec = jax.ShapeDtypeStruct((batch_size, data.n_x), jnp.float32)
 
     def fn(x0):
-        res = solve_stagewise(
-            data, x0, config=config, engine=engine, scan=scan)
+        res = solve_stagewise(data, x0, config=config, scan=scan)
         return {
             "u": res.u,
             "z": res.z,

@@ -55,9 +55,10 @@ def _add_solver_args(p):
                    help="operand dtype for the hot matmuls")
     p.add_argument("--precision", default="highest",
                    choices=["highest", "high", "default"],
-                   help="fp32 matmul precision ladder: 6-pass fp32 / 3-pass "
-                        "bf16x3 (2x faster, u* within a few e-3) / 1-pass "
-                        "bf16 (fastest, ~1e-2) — docs/DESIGN.md section 8")
+                   help="fp32 matmul precision: true fp32 / high / TF32 "
+                        "allowed (the XLA loop then runs TF32, u* ~1e-3; the "
+                        "fused kernel stays full fp32) — docs/DESIGN.md "
+                        "section 8")
     p.add_argument("--flat", default="auto", choices=["auto", "on", "off"],
                    help="exploit the input-box identity block in the mvp "
                         "form (the reference's flat kernels)")
@@ -159,8 +160,7 @@ def cmd_solve(args) -> int:
             import jax as _jax
 
             # time a JITTED wrapper with X0 as an argument: the un-jitted
-            # path re-traces the 2N-step scan per call (~7x understated,
-            # DESIGN.md §11 post-mortem)
+            # path re-traces the 2N-step scan on every call
             jsolve = _jax.jit(
                 lambda X: solve_stagewise(data, X, config=config).u)
             t = device_time_per_call(lambda: jsolve(X0j))
@@ -402,7 +402,7 @@ def cmd_info(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tpu_gpad",
-        description="TPU-native GPAD solver for condensed linear-MPC QPs",
+        description="Batched GPAD solver for condensed linear-MPC QPs",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

@@ -6,7 +6,7 @@ RHS from x0 every sample and recomputing ``inv(H)`` inside every solve
 (``acceldualgrad.m:20-23`` — an O(n_z^3) per-solve cost this design removes:
 condensation happens once offline and the x0-dependence is an affine map).
 
-TPU-native design: the entire closed loop — all T samples, each containing a
+Design: the entire closed loop — all T samples, each containing a
 full GPAD solve — is ONE jitted ``lax.scan``. Nothing crosses the host
 boundary until the final trajectory is fetched; the reference crosses it
 twice per sample (H2D of b_i, D2H of u*, ``main.cu:136-180``). The loop also

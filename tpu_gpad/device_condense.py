@@ -26,7 +26,7 @@ inert minus side (``types.PAD_BIG``), and SOFT state boxes
 (``soft_state``) use the slack-free dual-damping formulation
 (``GPADData.soft_damp``) — see ``dualize_ltv_device``.
 
-Numerics: everything is fp32 on TPU. The two linear solves against H use
+Numerics: everything is fp32 on the device. The two linear solves against H use
 Cholesky + one step of iterative refinement, and the Lipschitz constant
 comes from a fixed-iteration power method on the half-stack dual Hessian
 with a 1% safety margin (L only needs to be an UPPER bound on
@@ -49,11 +49,11 @@ from tpu_gpad.types import GPADData, PAD_BIG
 
 
 def _highest_matmuls(fn):
-    """Trace ``fn`` under fp32-highest matmul precision: on TPU the
-    DEFAULT precision is 1-pass bf16, which would corrupt the condensed
-    operands (H, T, S, the dual Hessian) by ~1e-2 relative — condensation
-    accuracy bounds the solution accuracy, so it always runs 6-pass fp32.
-    The tiny matrices involved make the 6x pass cost irrelevant."""
+    """Trace ``fn`` under fp32-highest matmul precision: DEFAULT precision
+    may run reduced-precision passes (TF32 on a GPU, ~1e-3 relative), which
+    would corrupt the condensed operands (H, T, S, the dual Hessian) —
+    condensation accuracy bounds the solution accuracy, so it always runs
+    full fp32. The matrices involved are tiny."""
     import functools as _ft
 
     @_ft.wraps(fn)
@@ -204,7 +204,7 @@ def dualize_ltv_device(
 
     ``soft_state`` softens the state-box rows with quadratic slack
     penalties of weight ``soft_state`` — same optimum as the host slack
-    formulation (``condense(soft_state=...)``), but TPU-native: instead
+    formulation (``condense(soft_state=...)``), but slack-free: instead
     of 2 N n_x slack variables and rows, the dual of a quadratic penalty
     is a per-row damping of the projected-gradient update
     (``GPADData.soft_damp``; L gains +1/rho). No decision-space growth,
@@ -504,7 +504,7 @@ def dualize_scenario_device(
     """Condense + dualize a MULTI-SCENARIO (robust) LTV stack on device.
 
     The device twin of ``robust.scenario_qp`` composed with ``condense``/
-    ``dualize`` (round-2 VERDICT item 4): ``A``/``B``/``c`` are traced
+    ``dualize``: ``A``/``B``/``c`` are traced
     per-scenario stacks of shape (S, N, n_x, n_x) / (S, N, n_x, n_u) /
     (S, N, n_x) — e.g. one successive linearization per model realization —
     and the result is the shared-first-move scenario QP's GPADData, built

@@ -3,7 +3,7 @@
 The reference solves each QP and stops; nothing in its stack can answer
 "how does u* move when the parameter moves?" — the object behind explicit
 MPC gains, sensitivity analysis, and learning-based MPC (tuning costs or
-references by gradient descent THROUGH the controller). On TPU/JAX this is
+references by gradient descent THROUGH the controller). In JAX this is
 a first-class capability: differentiate the solver's *fixed point* instead
 of unrolling its iterations, so the backward pass is one masked KKT solve
 instead of 100+ rematerialized loop steps.
@@ -33,8 +33,8 @@ damp == ``data.soft_damp`` (exactly diag(1/rho)/L), and the rhs map is
 
 Then dz = -MG_T' dy - gP_map' dp. In the paired [P; -P] layout the system
 lives on the HALF stack via the signed dual ytilde = y+ - y- (at most one
-side of a pair is active), so the per-scenario solve is (m_h, m_h) — a
-batched MXU-friendly LU. The system matrix is symmetric, so the VJP reuses
+side of a pair is active), so the per-scenario solve is (m_h, m_h). The
+system matrix is symmetric, so the VJP reuses
 it verbatim (one extra batched solve per backward pass).
 
 Caveats (documented, not hidden): derivatives assume the solve converged
@@ -82,23 +82,27 @@ def _solve_masked_system(data, m_b, ridge, Bmat, method="auto"):
     masked PSD dual Hessian + identity on inactive rows + nonnegative
     soft/ridge diagonal). ``Bmat`` is (B, S, K).
 
-    Two paths, chosen by backend when ``method="auto"``:
+    Two paths; ``method="auto"`` takes Cholesky:
 
-    - ``"chol"`` (CPU): materialize the (B, S, S) system and Cholesky-
-      solve — exact, and LAPACK eats batches of small factorizations.
-    - ``"cg"`` (TPU): matrix-free conjugate gradients against the SHARED
-      (S, S) dual Hessian — every iteration is one (B*K, S) @ (S, S)
-      MXU matmul, the same design move as the solver itself. TPU
-      factorizations are the wrong tool here: batched pivoted LU
-      measured 178x the whole forward solve at the headline shape and
-      batched Cholesky still 85x; CG brings the backward pass to the
-      order of one extra forward solve (DIFF_BENCH.json). S iterations
-      (exact-termination bound) with a relative-residual early exit.
+    - ``"chol"``: materialize the (B, S, S) system and Cholesky-solve —
+      exact up to fp32 rounding.
+    - ``"cg"``: matrix-free conjugate gradients against the SHARED (S, S)
+      dual Hessian — every iteration is one (B*K, S) @ (S, S) matmul, the
+      same design move as the solver itself. At most S + 8 iterations
+      (exact-termination bound), each scenario stopping at a 1e-5
+      relative residual, whatever else shares its batch.
+
+    Measured on an H100 (PERF.md), a gradient through the solve costs
+    1.58 vs 1.98 ms (battery n3 N10, B=4096), 10.6 vs 13.7 ms (N50,
+    B=1024) and 20.4 vs 35.1 ms (30x30, B=64) with CG vs Cholesky; but
+    against a float64 solve CG's gradient is off by up to 1.9e-4 of its
+    largest component where Cholesky's is off by 1.4e-6 (CPU, N50 and
+    30x30), so the default is the exact path and CG an opt-in.
 
     LICQ-degenerate active sets make the system singular — pass
     ``ridge > 0`` there (documented on every entry point)."""
     if method == "auto":
-        method = "cg" if jax.default_backend() == "tpu" else "chol"
+        method = "chol"
     Dh = _dual_hessian(data)
     diag = (1.0 - m_b) + ridge * m_b
     if data.soft_damp is not None:
@@ -125,7 +129,7 @@ def _solve_masked_system(data, m_b, ridge, Bmat, method="auto"):
     rs0 = jnp.sum(R0 * R0, axis=-2, keepdims=True)
     # 1e-10 squared-relative exit (1e-5 reduction): fp32 CG stagnates
     # below that and can then DIVERGE — see _sw_masked_cg, where the old
-    # 1e-14 exit was chip-measured producing 4e5-magnitude garbage
+    # 1e-14 exit was measured producing 4e5-magnitude garbage
     # gradients at large active sets
     tol2 = 1e-10 * jnp.maximum(rs0, 1e-30)
 
@@ -135,12 +139,18 @@ def _solve_masked_system(data, m_b, ridge, Bmat, method="auto"):
 
     def body(carry):
         i, X, R, P, rs = carry
+        # a column that has met its exit stops moving (alpha = 0 keeps R,
+        # hence rs, fixed), so each scenario's result is the one it gets
+        # solved alone, whatever else shares its batch
+        live = rs > tol2
         Ap = mv(P)
-        alpha = rs / (jnp.sum(P * Ap, axis=-2, keepdims=True) + 1e-30)
+        alpha = jnp.where(
+            live, rs / (jnp.sum(P * Ap, axis=-2, keepdims=True) + 1e-30), 0.0
+        )
         X = X + alpha * P
         R = R - alpha * Ap
         rs_new = jnp.sum(R * R, axis=-2, keepdims=True)
-        P = R + (rs_new / (rs + 1e-30)) * P
+        P = jnp.where(live, R + (rs_new / (rs + 1e-30)) * P, P)
         return i + 1, X, R, P, rs_new
 
     _, X, _, _, _ = jax.lax.while_loop(
@@ -197,9 +207,9 @@ def sensitivity(
     if single:
         y = y[None]
     m_b, plus = active_signs(data, y, tol)
-    # fp32-highest throughout: TPU default-precision (bf16-pass) matmuls
-    # inside the LU corrupt the KKT solve to ~1e-3 (chip-measured; same
-    # failure mode device_condense documents for its normal equations)
+    # fp32-highest throughout: reduced-precision default matmuls (TF32 on
+    # a GPU) would corrupt the KKT solve (same failure mode
+    # device_condense documents for its normal equations)
     with jax.default_matmul_precision("highest"):
         R = _masked_rhs_map(data, m_b, plus)  # (B, S, n_p)
         dY = _solve_masked_system(data, m_b, ridge, R, method)
@@ -230,7 +240,7 @@ def make_differentiable_solver(
     """A p -> u*(p) function that is differentiable through the solver.
 
     Forward = the production engine (``solve_batch`` with ``config`` —
-    Pallas kernels, restart, eps mode, everything). Backward = the implicit
+    the fused kernel, restart, eps mode, everything). Backward = the implicit
     KKT adjoint above: one batched masked solve against the SAME symmetric
     system, never unrolling solver iterations. Gradients flow to ``p``
     only; ``data`` is a constant of the closure (cost/model learning wants
@@ -261,8 +271,7 @@ def make_differentiable_solver(
         z_bar_full = jnp.zeros(z_bar.shape[:-1] + (data.n_z,)).at[
             ..., :n_keep
         ].set(z_bar)
-        # fp32-highest: see sensitivity() — TPU default precision corrupts
-        # the LU to ~1e-3
+        # fp32-highest: see sensitivity()
         with jax.default_matmul_precision("highest"):
             R = _masked_rhs_map(data, m_b, plus)  # (B, S, n_p)
             t = jnp.einsum("sz,...z->...s", data.MG_T, z_bar_full)
@@ -340,7 +349,7 @@ def _sw_masked_cg(d0, m_b, ridge, rhs, cg_iters, cg_rtol2=1e-10):
     through the stage-wise LQR oracle (one backward+forward sweep per
     iteration) instead of a shared (S, S) matmul. ``cg_rtol2`` is the
     SQUARED relative-residual exit. The default 1e-10 (1e-5 residual
-    reduction) is a chip-measured SAFETY bound, not a speed knob: fp32
+    reduction) is a measured SAFETY bound, not a speed knob: fp32
     CG cannot reach 1e-7 reduction at large active sets — it stagnates
     and then DIVERGES (n8 N240 B64: grad_max 4e5 at the old 1e-14 exit
     vs the correct 5.9 at 1e-10/1e-8, which agree bit-for-bit — and 10x

@@ -30,7 +30,7 @@ Rawlings 2003) is the *disturbance-model* design implemented here:
    plant will drift; the real plant stands still).
 
 All of this is cheap, host-side float64 linear algebra around the
-TPU-resident QP solve; the solve itself is the same jitted
+device-resident QP solve; the solve itself is the same jitted
 ``Controller.step``.
 """
 
@@ -317,9 +317,9 @@ class ExtendedKalmanFilter:
         self.f, self.h = f, h
         self.n_x, self.n_y = n_x, n_y
 
-        # fp32-HIGHEST matmul context: on TPU the DEFAULT precision
-        # lowers the user's f/h matmuls (and their jacfwd duals) to
-        # 1-pass bf16 — the ~1e-2 Jacobian error then corrupts the
+        # fp32-HIGHEST matmul context: DEFAULT precision may lower the
+        # user's f/h matmuls (and their jacfwd duals) to reduced-precision
+        # passes (TF32 on a GPU) — the Jacobian error then corrupts the
         # float64 covariance recursion this filter feeds (the same rule
         # as the device condenser's forced precision, DESIGN.md 9)
         def _fj(x, u):

@@ -16,7 +16,7 @@ condenses to exactly the parametric QP this framework already solves
 (``CondensedQP``: min 1/2 z'Hz + (F'p + g)'z, G z <= b0 + E p) with
 decision z = [x_0; w_0..w_{T-2}] and parameter p = [xbar; y_0..y_{T-1};
 u_0..u_{T-2}] — so the whole estimator stack rides the GPAD engines:
-paired Pallas kernels, restart, warm starts across window slides, and
+the fused dual kernel, restart, warm starts across window slides, and
 batched estimation of thousands of plants/sensor streams per device call
 (``MovingHorizonEstimator.solve_window``).
 
@@ -301,7 +301,7 @@ class MovingHorizonEstimator:
     is one warm-started GPAD solve of the window QP.
 
     ``solve_window(x_bar, Y, U)`` is the batched functional core: B
-    independent windows -> one ``solve_batch`` call (the TPU path for
+    independent windows -> one ``solve_batch`` call (the batched path for
     fleet estimation)."""
 
     def __init__(
@@ -342,21 +342,14 @@ class MovingHorizonEstimator:
         if engine == "auto":
             # long windows hit the SAME O(T^2) condensation wall as long
             # MPC horizons — but ONLY the memory backstop routes here:
-            # the MPC throughput crossover (N >= 170, measured on
-            # battery-class n8/n30 plants) does NOT transfer to MHE's
-            # typically tiny state. Chip-measured (MHE_STAGEWISE.json):
-            # at T=180 n_x=2 the condensed window QP is (360, 716) —
-            # whole-VMEM-kernel territory at 199k windows/s vs the
-            # stage-wise engine's 9.5k (0.048x; per-stage math is too
-            # small to amortize the 2T sequential sweeps). Stage-wise is
-            # the route when condensation's O(T^2 n_x^2) operands
-            # actually blow up (n_x=30: T ~ 95; n_x=2: T ~ 1400) — and
-            # there the route is chip-measured to PAY
-            # (MHE_STAGEWISE.json bigstate_rows, n_x=30 T=120 B=64):
-            # stage-wise 1.61x throughput over the condensed window QP
-            # even on its slowest executor (runtime q_lin/c rides the
-            # XLA scan), with a 24x build-time edge (6.7 s vs 164 s
-            # host condensation).
+            # the MPC throughput crossover (N >= 170, battery-class
+            # plants) does not transfer to MHE's typically tiny state,
+            # whose per-stage math is too small to amortize the 2T
+            # sequential sweeps. Stage-wise is the route when
+            # condensation's O(T^2 n_x^2) operands actually blow up
+            # (n_x=30: T ~ 95; n_x=2: T ~ 1400), where it also avoids
+            # the long host condensation. The backstop was tuned on
+            # another accelerator; not yet re-measured on the GPU.
             from tpu_gpad.stagewise import AUTO_STAGEWISE_ABOVE_MB
 
             mb = 2 * (4 * window * n_x) * (window * n_x) * 4 / 1e6

@@ -17,7 +17,7 @@ dualize/solve_batch/Controller and every engine (XLA, the fused Pallas
 kernels, eps mode, restart, sharding) work on it unchanged, and
 ``SolveResult.u`` is exactly the shared first move. The reference has no
 robust layer (single battery model, ``gpad.m:34-49``); this composes its
-condensed-QP machinery the TPU-batched way.
+condensed-QP machinery the batched way.
 
 No new solver math is introduced: everything here is offline numpy
 assembly, mirroring how ``condense`` itself is offline (``gpad.m:50-77``).

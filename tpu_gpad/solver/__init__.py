@@ -4,8 +4,8 @@
   reference's ``seq_functions.cpp`` CPU baseline and ``acceldualgrad.m``).
 - ``core``: jitted JAX solver — fixed-iteration and epsilon-termination
   modes, natively batched over scenarios.
-- ``kernels``: fused Pallas TPU kernel keeping the whole iteration loop in
-  VMEM.
+- ``kernels``: fused Pallas (Triton) GPU kernel running the whole
+  fixed-iteration dual loop in one launch.
 """
 
 from tpu_gpad.solver.core import (

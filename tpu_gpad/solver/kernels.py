@@ -1,34 +1,27 @@
-"""Fused Pallas GPAD iteration kernel (the L2 hot path).
+"""Fused GPAD dual loop for the GPU (Pallas, Triton route).
 
-TPU-native design (SURVEY.md section 7, build step 3)
------------------------------------------------------
-The reference launches 5 CUDA kernels per GPAD iteration with three
-device-wide syncs between them and every iterate round-tripping through HBM
-(``Code/CUDA/FinalProject/main.cu:160-175``). Here the *entire solve* — all
-``iterations`` of steps 1-4 — is ONE kernel invocation per batch tile:
+The XLA engine runs the dual-form iteration (``core._dual_loop``) as a
+``fori_loop`` whose body is one (B, m_h) @ (m_h, m_h) product plus a few
+elementwise fusions, so every iteration is several kernel launches and a
+round trip of the (B, 2, m_h) dual state through device memory. Here the
+whole fixed-iteration loop is ONE launch: each program owns a block of
+``BLOCK_B`` scenarios and
 
-- ``MG_T`` (m, n_z) and ``GL_T`` (n_z, m) are staged into VMEM once and
-  reused for every iteration of every scenario in the tile (their index map
-  is constant, so Mosaic does not re-fetch them between grid steps);
-- the dual/primal iterates ``y, y_prev, z, w, zhat`` live in VMEM/vregs as
-  ``fori_loop`` carries — zero HBM traffic inside the loop;
-- the two hot MVPs run as (B_t, m) @ (m, n_z) and (B_t, n_z) @ (n_z, m) MXU
-  matmuls fused with their SAXPY/projection neighbors on the VPU (the
-  replacement for ``kernel_functions.cu:16-64`` step 2 and ``:142-200``
-  step 4 + the branchless projection at ``:195``);
-- the momentum schedule ``theta/beta`` is scalar-prefetched into SMEM —
-  the TPU equivalent of the reference shipping the precomputed schedule with
-  the problem file (``main.cu:61-64``).
+- keeps y+, y-, their previous values and the primal-recovery sum s in
+  registers for all iterations;
+- holds the (chunk, chunk) blocks of ``-D`` (m_h zero-padded) in
+  registers for all iterations;
+- reads theta/beta from a small global array (the momentum schedule the
+  reference ships with the problem, ``main.cu:61-64``);
+- writes each output once.
 
-Padding: m and n_z are padded to lane multiples (128). Zero padding is
-*inert* through the iteration: padded rows/cols of the operands are zero, so
-padded lanes of ``w``/``zhat`` stay identically zero and ``y = relu(0)`` stays
-zero (no -inf sentinels needed; cf. the sentinel discussion in SURVEY.md §7).
+Blocks share nothing, so they run in parallel on all SMs. Zero padding is
+inert: padded rows/columns of ``-D``, of e and of the offsets are zero, so
+padded dual lanes stay identically zero, and padded scenarios solve the
+all-zero problem.
 
-The kernel is used when both condensed matrices fit in VMEM alongside a
-batch tile (true for every bundled benchmark config); otherwise the solver
-falls back to the XLA engine, which pipelines HBM-resident matmuls well at
-those sizes (``engine="auto"``).
+The kernel only compiles for a CUDA GPU. Tests on the CPU call
+``dual_loop`` with ``interpret=True``; ``solve_batch`` never does.
 """
 
 from __future__ import annotations
@@ -37,2315 +30,240 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpu_gpad.types import GPADData, SolveResult
-
-LANE = 128
-SUBLANE = 8
-_VMEM_BUDGET = 12 * 1024 * 1024  # leave headroom below the ~16 MB/core VMEM
-
-
-def _round_up(x: int, mult: int) -> int:
-    return ((x + mult - 1) // mult) * mult
-
-
-def _pad2(x: jax.Array, rows: int, cols: int) -> jax.Array:
-    r, c = x.shape
-    if r == rows and c == cols:
-        return x
-    return jnp.pad(x, ((0, rows - r), (0, cols - c)))
-
-
-def pick_lane_tile(
-    B: int,
-    S: int,
-    n_arrays: int = 26,
-    extra_per_lane: int = 0,
-    mats: int = 0,
-) -> int | None:
-    """Batch-tile (lane) width for the scenario-minor kernels — the ONE
-    source of truth for their VMEM budgets (the engine-selection guards
-    call it with the same coefficients as the kernels, so 'auto' never
-    picks a kernel that then rejects the problem).
-
-    VMEM holds ~``n_arrays`` (S, B_t) fp32 arrays (loop carries, body
-    temporaries, plus in/out blocks each DOUBLE-buffered by Mosaic's grid
-    pipeline — measured scoped-vmem on v5e: ~25 for the fixed dual kernel;
-    the N=50 battery problem OOMs if estimated at 14), plus
-    ``extra_per_lane`` additional fp32 rows per lane (second-space state,
-    e.g. primal (S_z, B_t) arrays) and ``mats`` bytes of constant
-    operands. Bigger tiles amortize grid/loop overhead; the curve is flat
-    past 1024 lanes."""
-    per_lane_bytes = 4 * (n_arrays * S + extra_per_lane)
-    for bt in (1024, 512, 256, LANE):
-        if bt > max(B, LANE):
-            continue
-        if mats + per_lane_bytes * bt <= _VMEM_BUDGET:
-            return bt
-    return LANE if mats + per_lane_bytes * LANE <= _VMEM_BUDGET else None
-
-
-# (n_arrays, extra_per_lane coefficient on S_z) per kernel: carries + body
-# temporaries + double-buffered in/out blocks, per the kernels' signatures
-DUAL_FIXED_ARRAYS = 26
-DUAL_CHUNK_ARRAYS = 36  # 7 lane-in + 7 lane-out + mom blocks, 8 carries
-PAIRED_ARRAYS = (24, 8)  # (dual-half space, primal space); +4: two double-buffered y0 blocks
-DENSE_ARRAYS = (15, 9)  # +2: the y0 input block is double-buffered
-# diagnostics=False variants: the dropped wp/wm (dual-space) and zhat
-# (primal-space) outputs each free TWO arrays (Mosaic double-buffers every
-# out block). Used by the kernels' OWN tile searches only — the engine-auto
-# guards stay on the full-output coefficients so routing (and therefore the
-# result bits) never depends on the diagnostics flag.
-PAIRED_ARRAYS_NODIAG = (PAIRED_ARRAYS[0] - 4, PAIRED_ARRAYS[1] - 2)
-DENSE_ARRAYS_NODIAG = (DENSE_ARRAYS[0] - 2, DENSE_ARRAYS[1] - 2)
-
-# The HBM-streamed tiled dual kernel keeps ONLY these manually-managed
-# scratch arrays in VMEM (state in/outs are pltpu.ANY refs DMA'd at the
-# tile edges, so Mosaic never double-buffers them): y ping-pong (4) +
-# s, wp, wm, wd, cp, cm.
-TILED_ARRAYS = 10
-
-
-def pick_tiled_tiles(m_half: int):
-    """(B_t, T_r, S) for the HBM-streamed tiled dual kernel, or None.
-
-    ``B_t`` is the batch (lane) tile, ``T_r`` the row-chunk height of the
-    streamed dual Hessian, ``S = round_up(m_half, T_r)`` the padded state
-    height. VMEM holds TILED_ARRAYS (S, B_t) scratch arrays plus the
-    double-buffered (T_r, S) D chunk; larger B_t raises the D-stream
-    arithmetic intensity (B_t/2 flops per streamed byte), so it is
-    preferred over larger T_r."""
-    for B_t in (256, LANE):
-        for T_r in (256, LANE, 64):
-            S = _round_up(m_half, max(T_r, SUBLANE))
-            scratch = 4 * TILED_ARRAYS * S * B_t + 4 * SUBLANE * B_t
-            dbuf = 2 * 4 * T_r * S
-            if scratch + dbuf <= _VMEM_BUDGET:
-                return B_t, T_r, S
-    return None
-
-
-def dual_tiled_fits(data: GPADData) -> bool:
-    """Can the HBM-streamed tiled dual kernel run this problem?
-
-    Soft (dual-damped) rows are declined: the streamed kernels do not
-    carry the damp column — VMEM-oversized soft duals take the XLA loop."""
-    return (
-        data.paired
-        and data.D is not None
-        and data.soft_damp is None
-        and pick_tiled_tiles(data.m_half) is not None
-    )
-
-
-# The HBM-streamed flat (mvp-form) kernel's VMEM-resident scratch:
-# 8 dual-height (S_hf, B_t) arrays (y+/y- ping-pong, w+/w-, c+/c-) and
-# 3 primal-height (S_z, B_t) arrays (g_P, z, zhat accumulator). The two
-# streamed operand blocks (MGf column chunk, GLs row chunk) are Mosaic
-# double-buffered on top.
-FLAT_TILED_DUAL_ARRAYS = 8
-FLAT_TILED_PRIMAL_ARRAYS = 3
-
-
-def pick_flat_tiled_tiles(
-    m_half: int, n_z: int, n_struct: int, tile: int | None = None
-):
-    """(B_t, T, S_s, S_z, S_hf) for the HBM-streamed flat kernel, or None.
-
-    ``T`` is both the streamed chunk width (MGf columns / GLs rows) and the
-    alignment of the structural region ``S_s = round_up(n_struct, T)``; the
-    padded dual height is ``S_hf = round_up(S_s + S_z, T)`` laid out
-    [struct | box | tail-pad]. Larger ``B_t`` raises the streams'
-    arithmetic intensity (B_t/2 flops per streamed byte) but multiplies
-    the 8 dual-height scratch arrays, so the flagship lands on
-    (B_t=128, T=128). ``tile`` forces T (tests use tiny values to exercise
-    multi-chunk grids on small problems)."""
-    S_z = _round_up(n_z, SUBLANE)
-    for B_t in (256, LANE):
-        for T in ((tile,) if tile else (256, LANE)):
-            T = max(T, SUBLANE)
-            S_s = _round_up(max(n_struct, 1), T)
-            S_hf = _round_up(S_s + S_z, T)
-            scratch = 4 * (
-                FLAT_TILED_DUAL_ARRAYS * S_hf
-                + FLAT_TILED_PRIMAL_ARRAYS * S_z
-            ) * B_t
-            dbuf = 2 * 4 * S_z * T * 2  # two streamed operands, dbuffed
-            if scratch + dbuf <= _VMEM_BUDGET:
-                return B_t, T, S_s, S_z, S_hf
-    return None
-
-
-def flat_tiled_fits(data: GPADData) -> bool:
-    """Can the HBM-streamed flat (mvp-form) kernel run this problem?
-
-    Needs the paired flat layout with a non-empty structural block (same
-    zero-row caveat as ``flat_fits_vmem``). Soft rows are declined — see
-    ``dual_tiled_fits``."""
-    return (
-        data.paired
-        and data.n_struct is not None
-        and data.n_struct > 0
-        and data.soft_damp is None
-        and pick_flat_tiled_tiles(data.m_half, data.n_z, data.n_struct)
-        is not None
-    )
-
-
-def _prep_operand(M: jax.Array, mm_dtype, precision: str):
-    """Prepare a constant matmul operand for a kernel.
-
-    fp32 + precision='high' is the 3-pass fp32 algorithm (bf16x3) — the
-    MXU runs it at 2x the 6-pass 'highest' rate (measured 63 vs 31 TFLOPs
-    on v5e) with near-fp32 accuracy — but Mosaic lowers only
-    DEFAULT/HIGHEST dot precisions, so the kernels emulate it: the
-    constant operand is pre-split offline into a stacked (2, ...) bf16
-    (hi, lo) pair and ``_kdot`` runs hi*hi + hi*lo + lo*hi. Everything
-    else passes through cast to ``mm_dtype`` (the kernel's native path)."""
-    if jnp.dtype(mm_dtype) == jnp.float32 and precision.lower() == "high":
-        hi = M.astype(jnp.bfloat16)
-        lo = (M - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        return jnp.stack([hi, lo])
-    return M
-
-
-def _kernel_precision(mm_dtype, precision: str):
-    """The lax precision handed to in-kernel dots. 'high' operands arrive
-    pre-split (see ``_prep_operand``), so the dots themselves run DEFAULT;
-    fp32 contract precision is only meaningful (and only lowerable in
-    Mosaic) for fp32 operands."""
-    p = precision.lower()
-    if jnp.dtype(mm_dtype) != jnp.float32 or p == "high":
-        return jax.lax.Precision.DEFAULT
-    return jax.lax.Precision(p)
-
-
-def _load_op(ref, mm_dtype):
-    """Load a kernel matmul operand: the stacked bf16 (hi, lo) pair is
-    kept as-is (detected by rank); native operands cast to mm_dtype."""
-    A = ref[:]
-    return A if A.ndim == 3 else A.astype(mm_dtype)
-
-
-def _kdot(A, b, precision):
-    """A @ b accumulated in fp32 inside a kernel. ``A`` is either a plain
-    (M, K) operand or the (2, M, K) bf16 (hi, lo) pair of the 3-pass fp32
-    emulation (b is then split on the fly — two cheap VPU passes)."""
-    f32 = jnp.float32
-    if A.ndim == b.ndim + 1:
-        b_hi = b.astype(jnp.bfloat16)
-        b_lo = (b - b_hi.astype(f32)).astype(jnp.bfloat16)
-        return (
-            jnp.dot(A[0], b_hi, preferred_element_type=f32)
-            + jnp.dot(A[0], b_lo, preferred_element_type=f32)
-            + jnp.dot(A[1], b_hi, preferred_element_type=f32)
-        )
-    return jnp.dot(A, b.astype(A.dtype), preferred_element_type=f32,
-                   precision=precision)
-
-
-def _const_spec(A: jax.Array) -> pl.BlockSpec:
-    """Whole-array VMEM BlockSpec for a constant operand (constant index
-    map: fetched once per kernel launch), rank-agnostic so the stacked
-    bf16 (hi, lo) operands of the 3-pass fp32 path work unchanged."""
-    zeros = (0,) * A.ndim
-    return pl.BlockSpec(A.shape, lambda *_: zeros, memory_space=pltpu.VMEM)
-
-
-def _od_mats(S: int, soft: bool) -> int:
-    """VMEM bytes of the (S, 1) soft-damp column: physically a full
-    (S, LANE) fp32 tile. Added to the constant-operand budget by BOTH the
-    kernels' tile searches and the engine-auto fits guards (the
-    one-source-of-truth rule of ``pick_lane_tile``)."""
-    return 4 * S * LANE if soft else 0
-
-
-def _od_column(data: GPADData, S: int) -> jax.Array | None:
-    """(S, 1) column ``1 - soft_damp`` (padded rows keep 1.0 — inert, the
-    padded dual lanes are identically zero anyway), or None on hard data."""
-    if data.soft_damp is None:
-        return None
-    od = 1.0 - data.soft_damp.astype(jnp.float32)
-    return jnp.pad(od[:, None], ((0, S - od.shape[0]), (0, 0)),
-                   constant_values=1.0)
-
-
-def _norm_y0(y0, Bflat: int, m_half: int):
-    """Normalize a warm-start dual to (Bflat, 2, m_half).
-
-    Accepts everything ``solve_batch`` documents: (2, m_h), (1, 2, m_h),
-    (B..., 2, m_h) with arbitrary leading batch dims — flattened then
-    broadcast, matching ``core._init_state``'s semantics."""
-    if y0 is None:
-        return None
-    y0 = jnp.asarray(y0, dtype=jnp.float32)
-    if y0.ndim > 3:
-        y0 = y0.reshape((-1,) + y0.shape[-2:])
-    return jnp.broadcast_to(y0, (Bflat, 2, m_half))
-
-
-def dual_fits_vmem(
-    data: GPADData, chunked: bool = False, diagnostics: bool = True
-) -> bool:
-    """Can the smallest tile of the fused dual (or chunked-eps) kernel fit?
-
-    ``diagnostics`` is accepted for signature parity with the mvp-family
-    guards but ignored: the dual kernel keeps its full output set either
-    way (dropping wp/wm was chip-measured slower — see
-    ``gpad_pallas_fixed_dual``)."""
-    del diagnostics
-    S = _round_up(data.m_half, SUBLANE)
-    n_arrays = DUAL_CHUNK_ARRAYS if chunked else DUAL_FIXED_ARRAYS
-    mats = 4 * S * S + _od_mats(S, data.soft_damp is not None)
-    return pick_lane_tile(1, S, n_arrays, mats=mats) is not None
-
-
-def fits_vmem(data: GPADData, diagnostics: bool = True) -> bool:
-    """Can the smallest (128-lane) tile of the dense/paired mvp kernel fit?
-
-    Uses the SAME coefficients as the kernels' own tile searches so the
-    engine-auto guard and the kernels cannot drift apart. ``diagnostics``
-    is accepted but IGNORED: routing must not depend on the flag, or
-    flipping it at a VMEM-marginal shape would switch engines and break
-    the documented bit-identical u/z/y contract. (The kernels' own
-    searches may still use the smaller *_NODIAG coefficients — that only
-    ever admits MORE than this guard, never less.)"""
-    del diagnostics
-    S_z = _round_up(data.n_z, SUBLANE)
-    if data.paired:
-        S_h = _round_up(data.m_half, SUBLANE)
-        na, nz_coef = PAIRED_ARRAYS
-        mats = 2 * 4 * S_h * S_z + _od_mats(S_h, data.soft_damp is not None)
-        return pick_lane_tile(
-            1, S_h, na, nz_coef * S_z, mats=mats
-        ) is not None
-    if data.soft_damp is not None:
-        # soft rows only arise on the paired device-condensation path;
-        # the dense kernel does not carry the damp column
-        return False
-    S_m = _round_up(data.m, SUBLANE)
-    na, nz_coef = DENSE_ARRAYS
-    return pick_lane_tile(
-        1, S_m, na, nz_coef * S_z, mats=2 * 4 * S_m * S_z
-    ) is not None
-
-
-def _gpad_kernel(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    # tensor inputs (scenario-minor: batch on LANES, see _gpad_kernel_dual)
-    gP_ref,  # (S_z, B_t)
-    pD_ref,  # (S_m, B_t)
-    y0_ref,  # (S_m, B_t) warm-start dual (zeros when cold)
-    MGt_ref,  # (S_z, S_m) == MG_T'
-    GLt_ref,  # (S_m, S_z) == GL_T'
-    # outputs (w/zhat present only with diagnostics — see solve_batch_pallas)
-    z_ref,
-    y_ref,
-    w_ref=None,
-    zhat_ref=None,
-    *,
-    iterations: int,
-    mm_dtype,
-    precision,
-):
-    """One batch tile: the full 4-step GPAD loop, dense constraint stack.
-
-    Scenario-minor layout: dual-sized state (y, w) is (S_m, B_t) and
-    primal-sized state (z, zhat) is (S_z, B_t) with the batch on lanes —
-    m and n_z pay 8-sublane rounding instead of 128-lane rounding (e.g.
-    the reference dataset shape m=140, n_z=30 pads to 144/32 rows, not
-    256/128 lanes). Both MVPs become (rows, contraction) @ (contraction,
-    lanes) MXU matmuls against once-fetched transposed operands."""
-    MGt = _load_op(MGt_ref, mm_dtype)  # (S_z, S_m)
-    GLt = _load_op(GLt_ref, mm_dtype)  # (S_m, S_z)
-    g_P = gP_ref[:]  # (S_z, B_t)
-    p_D = pD_ref[:]  # (S_m, B_t)
-    # Initial iterates derived from loaded operands (not a zeros broadcast):
-    # Mosaic assigns broadcast-zeros a replicated vector layout that cannot be
-    # relayout'd against the general layout of loop-carried values.
-    y0 = y0_ref[:]  # warm start (zeros when cold, matching _init_state)
-    z0 = g_P * 0.0
-
-    def body(k, carry):
-        y, y_prev, z, _, _ = carry
-        beta_k = beta_ref[k]
-        theta_k = theta_ref[k]
-        # Step 1 (SAXPY): w = y + beta (y - y_prev)        [VPU]
-        w = y + beta_k * (y - y_prev)
-        # Step 2 (MVP):   zhat = -(MG_T' w) - g_P          [MXU]
-        zhat = -_kdot(MGt, w, precision) - g_P
-        # Step 3 (SAXPY): z = (1-theta) z + theta zhat     [VPU]
-        z = (1.0 - theta_k) * z + theta_k * zhat
-        # Step 4 (MVP + branchless projection onto y >= 0) [MXU + VPU]
-        y_next = jnp.maximum(w + _kdot(GLt, zhat, precision) + p_D, 0.0)
-        return y_next, y, z, w, zhat
-
-    y, y_prev, z, w, zhat = jax.lax.fori_loop(
-        0, iterations, body, (y0, y0, z0, y0, z0)
-    )
-    z_ref[:] = z
-    y_ref[:] = y
-    if w_ref is not None:
-        w_ref[:] = w
-        zhat_ref[:] = zhat
-
-
-def _make_dual_body(theta_ref, beta_ref, idx, Dn, cp, cm, *, mm_dtype,
-                    precision, restart, od=None):
-    """The shared dual-form iteration body for the fused kernels.
-
-    Carry: (yp, ym, yp_prev, ym_prev, s, wp, wm, th, thp) — all (S, B_t)
-    except th/thp, the (1, B_t) per-scenario momentum-recursion rows used
-    in restart mode. ``idx(i)`` maps the loop counter to the schedule
-    index (identity for the whole-solve kernel, ``k0 + i`` for the
-    eps-mode chunk kernel). ``od`` is the optional (S, 1) soft-constraint
-    column ``1 - GPADData.soft_damp`` (lane-broadcast against the state):
-    soft rows damp their extrapolated dual in step 4 — same algebra as
-    ``core._iteration``/``_solve_fixed_dual``; the restart test keeps the
-    UNDAMPED w, mirroring ``core._restart_update``'s arguments."""
-    f32 = jnp.float32
-
-    def body(i, carry):
-        yp, ym, yp_prev, ym_prev, s, _, _, th, thp = carry
-        if restart:
-            theta_k = th  # (1, B_t), broadcasts over sublanes
-            beta_k = th * (1.0 / thp - 1.0)
-        else:
-            k = idx(i)
-            beta_k = beta_ref[k]
-            theta_k = theta_ref[k]
-        wp = yp + beta_k * (yp - yp_prev)
-        wm = ym + beta_k * (ym - ym_prev)
-        wd = wp - wm
-        d = _kdot(Dn, wd, precision)
-        wp_s = wp if od is None else wp * od
-        wm_s = wm if od is None else wm * od
-        yp_next = jnp.maximum(wp_s + d + cp, 0.0)
-        ym_next = jnp.maximum(wm_s - d + cm, 0.0)
-        s = s + theta_k * (wd - s)
-        if restart:
-            # O'Donoghue-Candes: restart iff (w - y+) . (y+ - y) > 0,
-            # summed over both dual halves (padded rows contribute zeros)
-            r = jnp.sum(
-                (wp - yp_next) * (yp_next - yp)
-                + (wm - ym_next) * (ym_next - ym),
-                axis=0,
-                keepdims=True,
-            )
-            mask = r > 0.0
-            th_next = jnp.where(
-                mask, 1.0, th * (jnp.sqrt(th * th + 4.0) - th) * 0.5
-            )
-            thp_next = jnp.where(mask, 1.0, th)
-            yp_prev_n = jnp.where(mask, yp_next, yp)
-            ym_prev_n = jnp.where(mask, ym_next, ym)
-            return (
-                yp_next, ym_next, yp_prev_n, ym_prev_n, s, wp, wm,
-                th_next, thp_next,
-            )
-        return yp_next, ym_next, yp, ym, s, wp, wm, th, thp
-
-    return body
-
-
-def _gpad_kernel_dual(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    # tensor inputs (all scenario-minor: shape (S, B_t), batch on LANES;
-    # with soft=True an (S, 1) od column follows Dn_ref)
-    cp_ref,
-    cm_ref,
-    y0p_ref,
-    y0m_ref,
-    Dn_ref,
-    # outputs (wp/wm present only with diagnostics)
-    *rest,
-    iterations: int,
-    mm_dtype,
-    precision,
-    restart: bool = False,
-    soft: bool = False,
-):
-    """Dual-only GPAD loop: ONE square matmul per iteration.
-
-    Scenario-minor ("transposed") layout: every state array is (S, B_t)
-    with the *batch* on the 128-wide lane dimension and the dual rows on
-    sublanes. The dual dimension m_h of MPC problems (e.g. 70) is far from
-    a lane multiple, so the batch-major layout (B_t, m_pad=128) wastes
-    ~45% of every VPU op on padding lanes; here the batch is always a lane
-    multiple and m_h only pays 8-sublane rounding (70 -> 72, 3%). The loop
-    is VPU-bound (the (S,S) matmul is tiny), so this layout choice is
-    worth ~1.7x on its own — measured on TPU v5e, see BENCH_DETAIL.json.
-
-    Algebra (identical to acceldualgrad.m:43-52 collapsed to the dual):
-        w+- = y+- + beta (y+- - y_prev+-)
-        d   = -D (w+ - w-)                      [MXU, symmetric D negated
-                                                 offline into Dn]
-        y+  = relu(w+ + d + cp),  cp = p_D+ - e [e = GL g_P folded offline]
-        y-  = relu(w- - d + cm),  cm = p_D- + e
-        s  += theta (wd - s)                    [convex comb for primal
-                                                 recovery outside]
-    """
-    if soft:
-        od_ref, *rest = rest
-    else:
-        od_ref = None
-    s_ref, yp_ref, ym_ref, *w_refs = rest
-    wp_ref, wm_ref = w_refs if w_refs else (None, None)
-    Dn = _load_op(Dn_ref, mm_dtype)  # (S, S) == -D padded (or bf16 hi/lo)
-    cp = cp_ref[:]  # (S, B_t)
-    cm = cm_ref[:]
-    zero = cp * 0.0
-    # warm start: y and y_prev both seeded from y0 (zeros when cold —
-    # matching core._init_state); s/w always start at zero
-    y0p = y0p_ref[:]
-    y0m = y0m_ref[:]
-    # per-scenario momentum recursion state for adaptive restart: one
-    # (1, B_t) lane row each (derived from loaded data for layout)
-    one_row = cp[0:1, :] * 0.0 + 1.0
-
-    body = _make_dual_body(
-        theta_ref, beta_ref, lambda i: i, Dn, cp, cm,
-        mm_dtype=mm_dtype, precision=precision, restart=restart,
-        od=None if od_ref is None else od_ref[:],
-    )
-    yp, ym, _, _, s, wp, wm, _, _ = jax.lax.fori_loop(
-        0, iterations, body,
-        (y0p, y0m, y0p, y0m, zero, zero, zero, one_row, one_row),
-    )
-    s_ref[:] = s
-    yp_ref[:] = yp
-    ym_ref[:] = ym
-    if wp_ref is not None:
-        wp_ref[:] = wp
-        wm_ref[:] = wm
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "iterations", "matmul_dtype", "precision", "interpret", "restart",
-        "diagnostics",
-    ),
-)
-def gpad_pallas_fixed_dual(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    y0: jax.Array | None = None,
-    *,
-    iterations: int,
-    matmul_dtype: str = "float32",
-    precision: str = "highest",
-    interpret: bool = False,
-    restart: bool = False,
-    diagnostics: bool = True,
-):
-    """Dual-form fused kernel (scenario-minor layout — see
-    ``_gpad_kernel_dual``). Returns (z, y, w, zhat) like the other entry
-    points; z/zhat are reconstructed with two post-loop matmuls.
-
-    ``diagnostics=False`` skips only the post-loop zhat/w recovery and
-    returns (z, y, None, None). Unlike the mvp-family kernels the wp/wm
-    OUTPUTS are kept: a 3-output variant never measured faster and once
-    measured a -14% Mosaic-schedule regression (the write traffic is
-    negligible next to the square matmul) — see docs/DESIGN.md section
-    8e for the measurement story."""
-    B = g_P.shape[0]
-    m_h, n_z = data.m_half, data.n_z
-    S = _round_up(m_h, SUBLANE)  # dual rows on SUBLANES: 8-rounding, not 128
-    soft = data.soft_damp is not None
-    B_t = pick_lane_tile(
-        B, S, DUAL_FIXED_ARRAYS, mats=4 * S * S + _od_mats(S, soft)
-    )
-    if B_t is None:
-        raise ValueError(
-            f"problem (m_half={m_h}) does not fit the fused dual kernel's "
-            "VMEM budget; use engine='xla'"
-        )
-    B_p = _round_up(B, B_t)
-
-    mm_dtype = jnp.dtype(matmul_dtype)
-    prec = (
-        jax.lax.Precision(precision.lower())
-        if mm_dtype == jnp.float32
-        else jax.lax.Precision.DEFAULT
-    )
-    # e = g_P @ GL_T hoisted out of the kernel (one rectangular matmul), then
-    # folded with p_D into the per-scenario relu offsets cp/cm
-    e = jnp.matmul(
-        g_P.astype(mm_dtype),
-        data.GL_T.astype(mm_dtype),
-        precision=prec,
-        preferred_element_type=jnp.float32,
-    )
-    cpT = _pad2((p_D[:, 0, :] - e).T, S, B_p)
-    cmT = _pad2((p_D[:, 1, :] + e).T, S, B_p)
-    if y0 is None:
-        y0pT = jnp.zeros((S, B_p), dtype=jnp.float32)
-        y0mT = y0pT
-    else:
-        y0b = _norm_y0(y0, B, data.m_half)  # accepts any leading batch dims
-        y0pT = _pad2(y0b[:, 0, :].T, S, B_p)
-        y0mT = _pad2(y0b[:, 1, :].T, S, B_p)
-    # symmetric, negation folded offline; bf16 (hi, lo) pair for 'high'
-    Dn = _prep_operand(_pad2(-data.D, S, S), mm_dtype, precision)
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-
-    kernel = functools.partial(
-        _gpad_kernel_dual, iterations=iterations, mm_dtype=mm_dtype,
-        precision=_kernel_precision(mm_dtype, precision), restart=restart,
-        soft=soft,
-    )
-    lane_spec = pl.BlockSpec(
-        (S, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-    in_specs = [
-        lane_spec,  # cp
-        lane_spec,  # cm
-        lane_spec,  # y0 plus rows (zeros when cold)
-        lane_spec,  # y0 minus rows
-        _const_spec(Dn),  # -D (fetched once)
-    ]
-    operands = [theta, beta, cpT, cmT, y0pT, y0mT, Dn]
-    if soft:
-        od = _od_column(data, S)
-        in_specs.append(_const_spec(od))  # (S, 1) soft-damp column
-        operands.append(od)
-    s, yp, ym, wp, wm = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(B_p // B_t,),
-            in_specs=in_specs,
-            out_specs=[lane_spec] * 5,
-        ),
-        out_shape=[jax.ShapeDtypeStruct((S, B_p), jnp.float32)] * 5,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * S * S * B_p * iterations,
-            bytes_accessed=4 * (S * S + 7 * S * B_p),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-
-    sT = s[:m_h, :B].T
-    a = 1.0 - jnp.prod(1.0 - theta)
-    mm = lambda x, M: jnp.matmul(
-        x.astype(mm_dtype), M.astype(mm_dtype),
-        precision=prec, preferred_element_type=jnp.float32,
-    )
-    z = -mm(sT, data.MG_T) - a * g_P
-    y = jnp.stack([yp[:m_h, :B].T, ym[:m_h, :B].T], axis=1)
-    if not diagnostics:
-        return z, y, None, None
-    wd = (wp[:m_h, :B] - wm[:m_h, :B]).T
-    zhat = -mm(wd, data.MG_T) - g_P
-    w = jnp.stack([wp[:m_h, :B].T, wm[:m_h, :B].T], axis=1)
-    return z, y, w, zhat
-
-
-def _gpad_kernel_dual_chunk(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    k0_ref,
-    # tensor inputs (scenario-minor, (S, B_t)); with soft=True an (S, 1)
-    # od column follows Dn_ref
-    cp_ref,
-    cm_ref,
-    ypi_ref,
-    ymi_ref,
-    ypp_i_ref,
-    ymp_i_ref,
-    si_ref,
-    mi_ref,
-    Dn_ref,
-    # outputs: yp, ym, ypp, ymp, s, wp, wm, mo
-    *rest,
-    chunk: int,
-    mm_dtype,
-    precision,
-    restart: bool = False,
-    soft: bool = False,
-):
-    """``chunk`` dual-form iterations starting at schedule offset ``k0``.
-
-    The eps-termination (Algorithm 1) building block: the host checks the
-    stopping test every ``check_every`` iterations (paper sec. 5.1's K), so
-    the kernel advances the VMEM-resident state by exactly one check window
-    and hands (y, y_prev, s, w) back for the residual test. Same algebra as
-    ``_gpad_kernel_dual``."""
-    if soft:
-        od_ref, *rest = rest
-    else:
-        od_ref = None
-    yp_ref, ym_ref, ypp_ref, ymp_ref, s_ref, wp_ref, wm_ref, mo_ref = rest
-    Dn = _load_op(Dn_ref, mm_dtype)
-    cp = cp_ref[:]
-    cm = cm_ref[:]
-    k0 = k0_ref[0]
-    zero = cp * 0.0
-    # momentum-recursion rows (restart mode): mi[(0,1), :] = (th, th_prev),
-    # persisted across chunk invocations through HBM
-    mom = mi_ref[:]
-
-    body = _make_dual_body(
-        theta_ref, beta_ref, lambda i: k0 + i, Dn, cp, cm,
-        mm_dtype=mm_dtype, precision=precision, restart=restart,
-        od=None if od_ref is None else od_ref[:],
-    )
-    init = (
-        ypi_ref[:], ymi_ref[:], ypp_i_ref[:], ymp_i_ref[:], si_ref[:],
-        zero, zero, mom[0:1, :], mom[1:2, :],
-    )
-    yp, ym, ypp, ymp, s, wp, wm, th, thp = jax.lax.fori_loop(
-        0, chunk, body, init
-    )
-    yp_ref[:] = yp
-    ym_ref[:] = ym
-    ypp_ref[:] = ypp
-    ymp_ref[:] = ymp
-    s_ref[:] = s
-    wp_ref[:] = wp
-    wm_ref[:] = wm
-    mo_ref[:] = jnp.concatenate([th, thp, mom[2:, :]], axis=0)
-
-
-def _dual_chunk_call(
-    data, cpT, cmT, Dn, theta, beta, S, B_p, B_t,
-    mm_dtype, prec, chunk, interpret, restart=False,
-):
-    """Build the jit-reusable chunk invocation (one compile per shape)."""
-    soft = data.soft_damp is not None
-    kernel = functools.partial(
-        _gpad_kernel_dual_chunk, chunk=chunk, mm_dtype=mm_dtype,
-        precision=prec, restart=restart, soft=soft,
-    )
-    lane_spec = pl.BlockSpec(
-        (S, B_t), lambda i, th, be, k0: (0, i), memory_space=pltpu.VMEM
-    )
-    mom_spec = pl.BlockSpec(
-        (SUBLANE, B_t), lambda i, th, be, k0: (0, i), memory_space=pltpu.VMEM
-    )
-    in_specs = [lane_spec] * 7 + [mom_spec, _const_spec(Dn)]
-    od = _od_column(data, S)
-    if soft:
-        in_specs.append(_const_spec(od))
-    specs = dict(
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,  # theta, beta, k0
-            grid=(B_p // B_t,),
-            in_specs=in_specs,
-            out_specs=[lane_spec] * 7 + [mom_spec],
-        ),
-        out_shape=(
-            [jax.ShapeDtypeStruct((S, B_p), jnp.float32)] * 7
-            + [jax.ShapeDtypeStruct((SUBLANE, B_p), jnp.float32)]
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * S * S * B_p * chunk,
-            bytes_accessed=4 * (S * S + 14 * S * B_p),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )
-
-    def call(k0, yp, ym, ypp, ymp, s, mom):
-        extra = (od,) if soft else ()
-        return pl.pallas_call(kernel, **specs)(
-            theta, beta, jnp.asarray([k0], dtype=jnp.int32),
-            cpT, cmT, yp, ym, ypp, ymp, s, mom, Dn, *extra,
-        )
-
-    return call
-
-
-def _gpad_kernel_dual_tiled(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    k0_ref,
-    # ANY (HBM) inputs: per-scenario constants + chunk-entry state
-    cp_hbm,
-    cm_hbm,
-    ypi_hbm,
-    ymi_hbm,
-    yppi_hbm,
-    ympi_hbm,
-    si_hbm,
-    momi_hbm,
-    # VMEM-blocked input: one (T_r, S) row chunk of -D per grid step
-    Dn_ref,
-    # ANY (HBM) outputs
-    yp_hbm,
-    ym_hbm,
-    ypp_hbm,
-    ymp_hbm,
-    s_hbm,
-    wp_hbm,
-    wm_hbm,
-    momo_hbm,
-    # scratch (the ONLY VMEM-resident state)
-    ypb,  # (2, S, B_t) ping-pong: slot it%2 = y at the top of iteration it
-    ymb,  # (2, S, B_t)
-    sb,  # (S, B_t)
-    wpb,
-    wmb,
-    wdb,
-    cpb,
-    cmb,
-    momb,  # (SUBLANE, B_t): rows 0/1 = th/th_prev, row 2 = restart-test sum
-    sem,  # (8,) DMA semaphores
-    *,
-    n_it: int,
-    B_t: int,
-    mm_dtype,
-    precision,
-    restart: bool,
-):
-    """``n_it`` dual-form iterations with the dual Hessian STREAMED from HBM.
-
-    The whole-VMEM dual kernel declines problems whose (S, S) Hessian plus
-    ~26 double-buffered (S, B_t) blocks exceed VMEM — notably the
-    reference's own flagship 30x30 shape (m_half=1830, D = 13.4 MB;
-    ``build/step3/4/input.txt``), which round 1 served with the XLA loop.
-    Here the iterates stay in VMEM *scratch* (state in/outs are ANY refs
-    DMA'd once per batch tile, so Mosaic cannot double-buffer them) and D
-    is the only per-iteration HBM traffic, auto-pipelined one (T_r, S) row
-    chunk at a time over the third grid axis. At B_t lanes per tile the
-    stream's arithmetic intensity is B_t/2 flops/byte — compute-bound on
-    v5e (fp32-highest) from B_t=128 up, i.e. the D fetch hides behind the
-    MXU. Grid: (batch_tiles, n_it, S // T_r); same algebra as
-    ``_make_dual_body`` including the O'Donoghue-Candes restart recursion
-    (the restart dot-product accumulates across row chunks in ``momb``).
-    """
-    f32 = jnp.float32
-    i, it, r = pl.program_id(0), pl.program_id(1), pl.program_id(2)
-    R = pl.num_programs(2)
-    T_r = Dn_ref.shape[-2]  # (T_r, S) or stacked (2, T_r, S) bf16 hi/lo
-    cur = jax.lax.rem(it, 2)
-    prv = jax.lax.rem(it + 1, 2)
-    off = i * B_t
-
-    @pl.when(jnp.logical_and(it == 0, r == 0))
-    def _load_tile():
-        lane = pl.ds(off, B_t)
-        copies = (
-            (cp_hbm.at[:, lane], cpb, 0),
-            (cm_hbm.at[:, lane], cmb, 1),
-            (ypi_hbm.at[:, lane], ypb.at[0], 2),
-            (ymi_hbm.at[:, lane], ymb.at[0], 3),
-            (yppi_hbm.at[:, lane], ypb.at[1], 4),
-            (ympi_hbm.at[:, lane], ymb.at[1], 5),
-            (si_hbm.at[:, lane], sb, 6),
-            (momi_hbm.at[:, lane], momb, 7),
-        )
-        dmas = [
-            pltpu.make_async_copy(src, dst, sem.at[k]) for src, dst, k in copies
-        ]
-        for dma in dmas:
-            dma.start()
-        for dma in dmas:
-            dma.wait()
-
-    @pl.when(r == 0)
-    def _momentum_and_w():
-        if restart:
-            th = momb[0:1, :]
-            thp = momb[1:2, :]
-            beta_k = th * (1.0 / thp - 1.0)
-            theta_k = th
-        else:
-            k = k0_ref[0] + it
-            beta_k = beta_ref[k]
-            theta_k = theta_ref[k]
-        # ref-to-ref assignments, one live (S, B_t) temporary at a time —
-        # at S=1920 a handful of simultaneous full-array temps would blow
-        # the VMEM budget the scratch allocation was sized for
-        wpb[:] = ypb[cur] + beta_k * (ypb[cur] - ypb[prv])
-        wmb[:] = ymb[cur] + beta_k * (ymb[cur] - ymb[prv])
-        wdb[:] = wpb[:] - wmb[:]
-        sb[:] = sb[:] + theta_k * (wdb[:] - sb[:])
-        if restart:
-            momb[2:3, :] = jnp.zeros_like(momb[2:3, :])
-
-    rows = pl.ds(r * T_r, T_r)
-    d = _kdot(_load_op(Dn_ref, mm_dtype), wdb[:], precision)
-    ypn = jnp.maximum(wpb[rows] + d + cpb[rows], 0.0)
-    ymn = jnp.maximum(wmb[rows] - d + cmb[rows], 0.0)
-    ypb[prv, rows] = ypn
-    ymb[prv, rows] = ymn
-    if restart:
-        momb[2:3, :] += jnp.sum(
-            (wpb[rows] - ypn) * (ypn - ypb[cur, rows])
-            + (wmb[rows] - ymn) * (ymn - ymb[cur, rows]),
-            axis=0,
-            keepdims=True,
-        )
-
-        @pl.when(r == R - 1)
-        def _restart_update():
-            mask = momb[2:3, :] > 0.0
-            th = momb[0:1, :]
-            momb[0:1, :] = jnp.where(
-                mask, 1.0, th * (jnp.sqrt(th * th + 4.0) - th) * 0.5
-            )
-            momb[1:2, :] = jnp.where(mask, 1.0, th)
-            # restarted lanes take y_prev <- y_next (slot cur becomes the
-            # previous iterate at the top of the next iteration)
-            ypb[cur] = jnp.where(mask, ypb[prv], ypb[cur])
-            ymb[cur] = jnp.where(mask, ymb[prv], ymb[cur])
-
-    @pl.when(jnp.logical_and(it == n_it - 1, r == R - 1))
-    def _store_tile():
-        lane = pl.ds(off, B_t)
-        copies = (
-            (ypb.at[prv], yp_hbm.at[:, lane], 0),
-            (ymb.at[prv], ym_hbm.at[:, lane], 1),
-            (ypb.at[cur], ypp_hbm.at[:, lane], 2),
-            (ymb.at[cur], ymp_hbm.at[:, lane], 3),
-            (sb, s_hbm.at[:, lane], 4),
-            (wpb, wp_hbm.at[:, lane], 5),
-            (wmb, wm_hbm.at[:, lane], 6),
-            (momb, momo_hbm.at[:, lane], 7),
-        )
-        dmas = [
-            pltpu.make_async_copy(src, dst, sem.at[k]) for src, dst, k in copies
-        ]
-        for dma in dmas:
-            dma.start()
-        for dma in dmas:
-            dma.wait()
-
-
-def _dual_tiled_call(
-    data, cpT, cmT, Dn, theta, beta, S, B_p, B_t, T_r,
-    mm_dtype, prec, chunk, interpret, restart=False,
-):
-    """Build the tiled-kernel chunk invocation (same contract as
-    ``_dual_chunk_call``: call(k0, yp, ym, ypp, ymp, s, mom) -> 8 state
-    arrays). State arrays here are (S, B_p) with S = round_up(m_h, T_r)."""
-    kernel = functools.partial(
-        _gpad_kernel_dual_tiled, n_it=chunk, B_t=B_t, mm_dtype=mm_dtype,
-        precision=prec, restart=restart,
-    )
-    any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    if Dn.ndim == 3:  # stacked bf16 (hi, lo) pair of the 3-pass fp32 path
-        d_spec = pl.BlockSpec(
-            (2, T_r, S), lambda i, it, r, th, be, k0: (0, r, 0),
-            memory_space=pltpu.VMEM,
-        )
-    else:
-        d_spec = pl.BlockSpec(
-            (T_r, S), lambda i, it, r, th, be, k0: (r, 0),
-            memory_space=pltpu.VMEM,
-        )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,  # theta, beta, k0
-        grid=(B_p // B_t, chunk, S // T_r),
-        in_specs=[any_spec] * 8 + [d_spec],
-        out_specs=[any_spec] * 8,
-        scratch_shapes=[
-            pltpu.VMEM((2, S, B_t), jnp.float32),  # y+ ping-pong
-            pltpu.VMEM((2, S, B_t), jnp.float32),  # y- ping-pong
-            pltpu.VMEM((S, B_t), jnp.float32),  # s
-            pltpu.VMEM((S, B_t), jnp.float32),  # w+
-            pltpu.VMEM((S, B_t), jnp.float32),  # w-
-            pltpu.VMEM((S, B_t), jnp.float32),  # w difference
-            pltpu.VMEM((S, B_t), jnp.float32),  # cp
-            pltpu.VMEM((S, B_t), jnp.float32),  # cm
-            pltpu.VMEM((SUBLANE, B_t), jnp.float32),  # momentum rows
-            pltpu.SemaphoreType.DMA((8,)),
-        ],
-    )
-    specs = dict(
-        grid_spec=grid_spec,
-        out_shape=(
-            [jax.ShapeDtypeStruct((S, B_p), jnp.float32)] * 7
-            + [jax.ShapeDtypeStruct((SUBLANE, B_p), jnp.float32)]
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * S * S * B_p * chunk,
-            # D streams once per iteration per batch tile — the dominant
-            # HBM term; state crosses once per tile
-            bytes_accessed=4 * S * S * chunk * (B_p // B_t)
-            + 4 * 15 * S * B_p,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )
-
-    def call(k0, yp, ym, ypp, ymp, s, mom):
-        return pl.pallas_call(kernel, **specs)(
-            theta, beta, jnp.asarray([k0], dtype=jnp.int32),
-            cpT, cmT, yp, ym, ypp, ymp, s, mom, Dn,
-        )
-
-    return call
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "iterations", "matmul_dtype", "precision", "interpret", "restart",
-        "row_tile", "diagnostics",
-    ),
-)
-def gpad_pallas_fixed_dual_tiled(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    y0: jax.Array | None = None,
-    *,
-    iterations: int,
-    matmul_dtype: str = "float32",
-    precision: str = "highest",
-    interpret: bool = False,
-    restart: bool = False,
-    row_tile: int | None = None,
-    diagnostics: bool = True,
-):
-    """Whole-solve entry for the HBM-streamed tiled dual kernel.
-
-    Same contract as ``gpad_pallas_fixed_dual`` ((z, y, w, zhat) in
-    batch-major convention); used when the whole-VMEM dual kernel's budget
-    guard declines the problem (``dual_fits_vmem`` False) but
-    ``dual_tiled_fits`` holds — e.g. the reference's flagship 30x30 shape.
-    ``row_tile`` overrides the D row-chunk height (tests use small values
-    to exercise multi-chunk grids on tiny problems)."""
-    B = g_P.shape[0]
-    m_h = data.m_half
-    if data.soft_damp is not None:
-        raise ValueError(
-            "the streamed tiled dual kernel does not carry soft "
-            "(dual-damped) rows; use engine='xla'"
-        )
-    picked = pick_tiled_tiles(m_h)
-    if picked is None:
-        raise ValueError(
-            f"problem (m_half={m_h}) exceeds even the tiled dual kernel's "
-            "VMEM budget; use engine='xla'"
-        )
-    B_t, T_r, S = picked
-    if row_tile is not None:
-        T_r = row_tile
-        S = _round_up(m_h, max(T_r, SUBLANE))
-    B_p = _round_up(B, B_t)
-
-    mm_dtype = jnp.dtype(matmul_dtype)
-    prec = (
-        jax.lax.Precision(precision.lower())
-        if mm_dtype == jnp.float32
-        else jax.lax.Precision.DEFAULT
-    )
-    e = jnp.matmul(
-        g_P.astype(mm_dtype),
-        data.GL_T.astype(mm_dtype),
-        precision=prec,
-        preferred_element_type=jnp.float32,
-    )
-    cpT = _pad2((p_D[:, 0, :] - e).T, S, B_p)
-    cmT = _pad2((p_D[:, 1, :] + e).T, S, B_p)
-    if y0 is None:
-        ypT = jnp.zeros((S, B_p), dtype=jnp.float32)
-        ymT = ypT
-    else:
-        y0b = _norm_y0(y0, B, m_h)
-        ypT = _pad2(y0b[:, 0, :].T, S, B_p)
-        ymT = _pad2(y0b[:, 1, :].T, S, B_p)
-    Dn = _prep_operand(_pad2(-data.D, S, S), mm_dtype, precision)
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-    zero = jnp.zeros((S, B_p), dtype=jnp.float32)
-    mom0 = jnp.ones((SUBLANE, B_p), dtype=jnp.float32)
-
-    call = _dual_tiled_call(
-        data, cpT, cmT, Dn, theta, beta, S, B_p, B_t, T_r,
-        mm_dtype, _kernel_precision(mm_dtype, precision), iterations,
-        interpret, restart=restart,
-    )
-    yp, ym, _, _, s, wp, wm, _ = call(0, ypT, ymT, ypT, ymT, zero, mom0)
-
-    sT = s[:m_h, :B].T
-    a = 1.0 - jnp.prod(1.0 - theta)
-    mm = lambda x, M: jnp.matmul(
-        x.astype(mm_dtype), M.astype(mm_dtype),
-        precision=prec, preferred_element_type=jnp.float32,
-    )
-    z = -mm(sT, data.MG_T) - a * g_P
-    y = jnp.stack([yp[:m_h, :B].T, ym[:m_h, :B].T], axis=1)
-    if not diagnostics:
-        # the tiled kernel's HBM-resident state makes its wp/wm writes
-        # essentially free (the D stream dominates); only the post-loop
-        # zhat reconstruction matmul is skipped here
-        return z, y, None, None
-    wd = (wp[:m_h, :B] - wm[:m_h, :B]).T
-    zhat = -mm(wd, data.MG_T) - g_P
-    w = jnp.stack([wp[:m_h, :B].T, wm[:m_h, :B].T], axis=1)
-    return z, y, w, zhat
-
-
-def gpad_pallas_eps_dual(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    config,
-    y0: jax.Array | None = None,
-) -> SolveResult:
-    """Algorithm-1 (eps-termination) solve with the fused dual kernel.
-
-    Chunked execution: the kernel advances all scenarios by ``check_every``
-    iterations with VMEM-resident state; between chunks the host-side jitted
-    while_loop computes the primal/gap residual test (two rectangular
-    matmuls), captures each scenario's first eps-optimal point, and stops
-    when every scenario (psum'd over ``collective_axes``) has converged —
-    the reference never implemented this mode (the MATLAB test is commented
-    out, acceldualgrad.m:66-79; main.cu fixes N_v=100)."""
-    from jax import lax
-
-    from tpu_gpad.solver import core as _core
-
-    B = g_P.shape[0]
-    m_h = data.m_half
-    S = _round_up(m_h, SUBLANE)
-    soft = data.soft_damp is not None
-    B_t = pick_lane_tile(
-        B, S, DUAL_CHUNK_ARRAYS, mats=4 * S * S + _od_mats(S, soft)
-    )
-    T_r = None
-    if B_t is None:  # whole-VMEM chunk kernel declines: stream D from HBM
-        picked = pick_tiled_tiles(m_h)
-        if picked is None or soft:
-            raise ValueError(
-                "problem too large for the fused dual kernels' VMEM"
-                + (" (the streamed tiled kernel does not carry soft rows;"
-                   " use engine='xla')" if soft else "")
-            )
-        B_t, T_r, S = picked
-    B_p = _round_up(B, B_t)
-    iterations = config.iterations
-    C = max(min(config.check_every, iterations), 1)
-    n_full = iterations // C
-    rem = iterations - n_full * C  # final partial check window (if any)
-
-    mm_dtype = jnp.dtype(config.matmul_dtype)
-    # kernel-side dot precision; the host-side recovery/residual matmuls
-    # (mm) use the full configured precision (XLA lowers HIGH natively)
-    prec = _kernel_precision(mm_dtype, config.precision)
-    mm = _core._make_matmul(config)
-    e = mm(g_P, data.GL_T)
-    cpT = _pad2((p_D[:, 0, :] - e).T, S, B_p)
-    cmT = _pad2((p_D[:, 1, :] + e).T, S, B_p)
-    Dn = _prep_operand(_pad2(-data.D, S, S), mm_dtype, config.precision)
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-    interpret = jax.default_backend() != "tpu"
-
-    def make_call(chunk):
-        if T_r is None:
-            return _dual_chunk_call(
-                data, cpT, cmT, Dn, theta, beta, S, B_p, B_t,
-                mm_dtype, prec, chunk, interpret, restart=config.restart,
-            )
-        return _dual_tiled_call(
-            data, cpT, cmT, Dn, theta, beta, S, B_p, B_t, T_r,
-            mm_dtype, prec, chunk, interpret, restart=config.restart,
-        )
-
-    call = make_call(C)
-
-    if y0 is None:
-        ypT = jnp.zeros((S, B_p), dtype=jnp.float32)
-        ymT = ypT
-    else:
-        y0b = _norm_y0(y0, B, m_h)  # accepts any leading batch dims
-        ypT = _pad2(y0b[:, 0, :].T, S, B_p)
-        ymT = _pad2(y0b[:, 1, :].T, S, B_p)
-    zero = jnp.zeros((S, B_p), dtype=jnp.float32)
-
-    def recover(sT, wpT, wmT):
-        """(z, zhat, w) in batch-major convention from transposed state."""
-        s_bm = sT[:m_h, :B].T
-        wd = (wpT[:m_h, :B] - wmT[:m_h, :B]).T
-        z = -mm(s_bm, data.MG_T) - g_P  # a = 1 (theta_0 = 1)
-        zhat = -mm(wd, data.MG_T) - g_P
-        w = jnp.stack([wpT[:m_h, :B].T, wmT[:m_h, :B].T], axis=1)
-        return z, zhat, w
-
-    converged0 = jnp.zeros((B,), dtype=bool)
-    iters0 = jnp.full((B,), iterations, dtype=jnp.int32)
-    z_out0 = jnp.zeros((B, data.n_z), dtype=jnp.float32)
-
-    def check(k_now, s, wp, wm, yp, ym, converged, iters, z_out):
-        """The Algorithm-1 eps test at iteration ``k_now`` (paper p.4):
-        capture each newly-converged scenario's eps-optimal point and
-        psum the all-converged predicate over the mesh axes."""
-        z, zhat, w = recover(s, wp, wm)
-        # soft rows measure the z-violation against the recovered slack
-        # y/rho (core._residuals consults y only when soft_damp is set)
-        y = (
-            jnp.stack([yp[:m_h, :B].T, ym[:m_h, :B].T], axis=1)
-            if soft else None
-        )
-        viol_z, viol_zhat, gap = _core._residuals(
-            data, g_P, p_D, z, zhat, w, mm, y=y
-        )
-        ok_z = viol_z <= config.eps_g
-        ok_zhat = jnp.logical_and(viol_zhat <= config.eps_g, gap <= config.eps_V)
-        ok = jnp.logical_or(ok_z, ok_zhat)
-        newly = jnp.logical_and(ok, jnp.logical_not(converged))
-        iters = jnp.where(newly, k_now, iters)
-        z_sel = jnp.where(ok_z[..., None], z, zhat)
-        z_out = jnp.where(newly[..., None], z_sel, z_out)
-        converged = jnp.logical_or(converged, ok)
-        n_unconverged = jnp.sum(jnp.logical_not(converged).astype(jnp.int32))
-        for ax in config.collective_axes:
-            n_unconverged = lax.psum(n_unconverged, ax)
-        return converged, iters, z_out, n_unconverged
-
-    def cond(carry):
-        c, done, *_ = carry
-        return jnp.logical_and(c < n_full, jnp.logical_not(done))
-
-    def body(carry):
-        c, done, yp, ym, ypp, ymp, s, _, _, mom, converged, iters, z_out = carry
-        k0 = c * C
-        yp, ym, ypp, ymp, s, wp, wm, mom = call(k0, yp, ym, ypp, ymp, s, mom)
-        converged, iters, z_out, n_unconverged = check(
-            k0 + C, s, wp, wm, yp, ym, converged, iters, z_out
-        )
-        return (
-            c + 1, n_unconverged == 0, yp, ym, ypp, ymp, s, wp, wm, mom,
-            converged, iters, z_out,
-        )
-
-    mom0 = jnp.ones((SUBLANE, B_p), dtype=jnp.float32)
-    carry = (
-        jnp.asarray(0, jnp.int32), jnp.asarray(False),
-        ypT, ymT, ypT, ymT, zero, zero, zero, mom0,
-        converged0, iters0, z_out0,
-    )
-    (
-        c, done, yp, ym, ypp, ymp, s, wp, wm, mom, converged, iters, z_out
-    ) = lax.while_loop(cond, body, carry)
-
-    if rem:
-        # non-divisible budget: one final partial chunk + check. Runs
-        # unconditionally (a lax.cond around a pallas_call would compile it
-        # anyway); if the loop exited early everything below is a no-op on
-        # the frozen per-scenario outputs. k0 = c*C keeps the momentum
-        # schedule exactly contiguous with wherever the loop stopped.
-        call_rem = make_call(rem)
-        yp, ym, ypp, ymp, s, wp, wm, mom = call_rem(
-            c * C, yp, ym, ypp, ymp, s, mom
-        )
-        converged, iters, z_out, _ = check(
-            c * C + rem, s, wp, wm, yp, ym, converged, iters, z_out
-        )
-
-    z, zhat, w = recover(s, wp, wm)
-    z_final = jnp.where(converged[..., None], z_out, z)
-    y = jnp.stack([yp[:m_h, :B].T, ym[:m_h, :B].T], axis=1)
-    viol_z, _, gap = _core._residuals(
-        data, g_P, p_D, z_final, zhat, w, mm, y=y if soft else None
-    )
-    return SolveResult(
-        u=z_final[..., : data.n_u],
-        z=z_final,
-        y=y,
-        iterations=iters,
-        residual=jnp.maximum(viol_z, 0.0),
-        gap=gap,
-        converged=converged,
-    )
-
-
-def _gpad_kernel_paired(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    # tensor inputs; with soft=True an (S_h, 1) od column follows GL_ref
-    gP_ref,
-    pDp_ref,
-    pDm_ref,
-    y0p_ref,
-    y0m_ref,
-    MG_ref,
-    GL_ref,
-    # outputs: z, yp, ym (+ wp, wm, zhat with diagnostics)
-    *rest,
-    iterations: int,
-    mm_dtype,
-    precision,
-    soft: bool = False,
-):
-    """Half-stack GPAD loop: one MVP per step against P instead of [P; -P].
-
-    Step 2 contracts (w+ - w-) with MG_T' once; step 4 computes
-    q = GL_T' zhat once and projects both sign applications — half the MXU
-    work of the dense kernel at identical math (the dual y merely permutes).
-    Scenario-minor layout (batch on lanes, see ``_gpad_kernel_dual``):
-    dual-half state is (S_h, B_t), primal state (S_z, B_t). Preferred over
-    the dual-only form for long horizons, where the two rectangular MVPs
-    (2·m_h·n_z flops) beat the square dual Hessian product (m_h² flops)
-    because m_h = 2·n_z + N > 2·n_z (see ``resolve_form``)."""
-    if soft:
-        od_ref, *rest = rest
-    else:
-        od_ref = None
-    z_ref, yp_ref, ym_ref, *w_refs = rest
-    wp_ref, wm_ref, zhat_ref = w_refs if w_refs else (None, None, None)
-    MGt = _load_op(MG_ref, mm_dtype)  # (S_z, S_h) == MG_T' (half stack)
-    GLt = _load_op(GL_ref, mm_dtype)  # (S_h, S_z) == GL_T'
-    g_P = gP_ref[:]  # (S_z, B_t)
-    p_Dp = pDp_ref[:]  # (S_h, B_t)
-    p_Dm = pDm_ref[:]
-    od = None if od_ref is None else od_ref[:]  # (S_h, 1), lane-broadcast
-    y0p = y0p_ref[:]  # warm start (zeros when cold)
-    y0m = y0m_ref[:]
-    z0 = g_P * 0.0
-
-    def body(k, carry):
-        yp, ym, yp_prev, ym_prev, z, _, _, _ = carry
-        beta_k = beta_ref[k]
-        theta_k = theta_ref[k]
-        wp = yp + beta_k * (yp - yp_prev)
-        wm = ym + beta_k * (ym - ym_prev)
-        zhat = -_kdot(MGt, wp - wm, precision) - g_P
-        z = (1.0 - theta_k) * z + theta_k * zhat
-        q = _kdot(GLt, zhat, precision)
-        # soft rows damp their extrapolated dual (core._iteration's w_s)
-        wp_s = wp if od is None else wp * od
-        wm_s = wm if od is None else wm * od
-        yp_next = jnp.maximum(wp_s + q + p_Dp, 0.0)
-        ym_next = jnp.maximum(wm_s - q + p_Dm, 0.0)
-        return yp_next, ym_next, yp, ym, z, wp, wm, zhat
-
-    zero_h = p_Dp * 0.0
-    yp, ym, _, _, z, wp, wm, zhat = jax.lax.fori_loop(
-        0, iterations, body, (y0p, y0m, y0p, y0m, z0, zero_h, zero_h, z0)
-    )
-    z_ref[:] = z
-    yp_ref[:] = yp
-    ym_ref[:] = ym
-    if wp_ref is not None:
-        wp_ref[:] = wp
-        wm_ref[:] = wm
-        zhat_ref[:] = zhat
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "iterations", "matmul_dtype", "precision", "interpret", "diagnostics"
-    ),
-)
-def gpad_pallas_fixed_paired(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    y0: jax.Array | None = None,
-    *,
-    iterations: int,
-    matmul_dtype: str = "float32",
-    precision: str = "highest",
-    interpret: bool = False,
-    diagnostics: bool = True,
-):
-    """Paired-layout fused kernel (scenario-minor). ``p_D`` has shape
-    (B, 2, m_h); returns (z, y, w, zhat) with y/w in (B, 2, m_h).
-    ``diagnostics=False`` drops the wp/wm/zhat outputs and returns
-    (z, y, None, None)."""
-    B = g_P.shape[0]
-    m_h, n_z = data.m_half, data.n_z
-    S_h = _round_up(m_h, SUBLANE)
-    S_z = _round_up(n_z, SUBLANE)
-    soft = data.soft_damp is not None
-    mats = 2 * 4 * S_h * S_z + _od_mats(S_h, soft)
-    na, nz_coef = PAIRED_ARRAYS if diagnostics else PAIRED_ARRAYS_NODIAG
-    B_t = pick_lane_tile(B, S_h, na, nz_coef * S_z, mats=mats)
-    if B_t is None:
-        raise ValueError(
-            f"problem (m_half={m_h}, n_z={n_z}) does not fit the fused "
-            "kernel's VMEM budget; use engine='xla'"
-        )
-    B_p = _round_up(B, B_t)
-
-    mm_dtype = jnp.dtype(matmul_dtype)
-    MGt = _prep_operand(
-        _pad2(data.MG_T.T, S_z, S_h), mm_dtype, precision
-    )  # (n_z, m_h) padded
-    GLt = _prep_operand(
-        _pad2(data.GL_T.T, S_h, S_z), mm_dtype, precision
-    )  # (m_h, n_z) padded
-    gPT = _pad2(g_P.T, S_z, B_p)
-    pDpT = _pad2(p_D[:, 0, :].T, S_h, B_p)
-    pDmT = _pad2(p_D[:, 1, :].T, S_h, B_p)
-    if y0 is None:
-        y0pT = jnp.zeros((S_h, B_p), dtype=jnp.float32)
-        y0mT = y0pT
-    else:
-        y0b = _norm_y0(y0, B, m_h)  # accepts any leading batch dims
-        y0pT = _pad2(y0b[:, 0, :].T, S_h, B_p)
-        y0mT = _pad2(y0b[:, 1, :].T, S_h, B_p)
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-
-    kernel = functools.partial(
-        _gpad_kernel_paired, iterations=iterations, mm_dtype=mm_dtype,
-        precision=_kernel_precision(mm_dtype, precision), soft=soft,
-    )
-    lane_spec_z = pl.BlockSpec(
-        (S_z, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-    lane_spec_h = pl.BlockSpec(
-        (S_h, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-    out_specs = [lane_spec_z, lane_spec_h, lane_spec_h]
-    out_shape = [
-        jax.ShapeDtypeStruct((S_z, B_p), jnp.float32),
-        jax.ShapeDtypeStruct((S_h, B_p), jnp.float32),
-        jax.ShapeDtypeStruct((S_h, B_p), jnp.float32),
-    ]
-    if diagnostics:
-        out_specs += [lane_spec_h, lane_spec_h, lane_spec_z]
-        out_shape += [
-            jax.ShapeDtypeStruct((S_h, B_p), jnp.float32),
-            jax.ShapeDtypeStruct((S_h, B_p), jnp.float32),
-            jax.ShapeDtypeStruct((S_z, B_p), jnp.float32),
-        ]
-    in_specs = [
-        lane_spec_z,  # g_P
-        lane_spec_h,  # p_D plus rows
-        lane_spec_h,  # p_D minus rows
-        lane_spec_h,  # y0 plus rows (zeros when cold)
-        lane_spec_h,  # y0 minus rows
-        _const_spec(MGt),  # MG_T' (half stack)
-        _const_spec(GLt),  # GL_T'
-    ]
-    operands = [theta, beta, gPT, pDpT, pDmT, y0pT, y0mT, MGt, GLt]
-    if soft:
-        od = _od_column(data, S_h)
-        in_specs.append(_const_spec(od))  # (S_h, 1) soft-damp column
-        operands.append(od)
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(B_p // B_t,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-        ),
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * S_h * S_z * 2 * iterations * B_p,
-            bytes_accessed=mats + 4 * B_p * (4 * S_h + 2 * S_z),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-    z, yp, ym = outs[:3]
-    y = jnp.stack([yp[:m_h, :B].T, ym[:m_h, :B].T], axis=1)
-    if not diagnostics:
-        return z[:n_z, :B].T, y, None, None
-    wp, wm, zhat = outs[3:]
-    w = jnp.stack([wp[:m_h, :B].T, wm[:m_h, :B].T], axis=1)
-    return z[:n_z, :B].T, y, w, zhat[:n_z, :B].T
-
-
-FLAT_PAIRED_ARRAYS = (26, 9)  # (dual-half space, primal space) coefficients
-# diagnostics=False: wp/wm (-4, double-buffered) and zhat (-2) dropped;
-# kernel tile search only (see the *_NODIAG note above PAIRED_ARRAYS_NODIAG)
-FLAT_PAIRED_ARRAYS_NODIAG = (FLAT_PAIRED_ARRAYS[0] - 4, FLAT_PAIRED_ARRAYS[1] - 2)
-
-
-def flat_fits_vmem(data: GPADData, diagnostics: bool = True) -> bool:
-    """Can the flat paired kernel (identity-block layout) fit a tile?
-
-    ``diagnostics`` accepted but ignored — same routing-stability
-    rationale as ``fits_vmem``."""
-    del diagnostics
-    if not (data.paired and data.n_struct is not None):
-        return False
-    if data.n_struct == 0:
-        # box-only stack: the flat kernel's structured operand would be
-        # zero-row (Mosaic rejects empty blocks); the paired/dual kernels
-        # serve these, and the XLA flat path short-circuits to zhat/L
-        return False
-    n_s = data.n_struct
-    S_s = _round_up(n_s, SUBLANE)
-    S_z = _round_up(data.n_z, SUBLANE)
-    S_hf = S_s + S_z
-    na, nz_coef = FLAT_PAIRED_ARRAYS
-    mats = (4 * (S_z * S_hf + S_s * S_z)
-            + _od_mats(S_hf, data.soft_damp is not None))
-    return pick_lane_tile(1, S_hf, na, nz_coef * S_z, mats=mats) is not None
-
-
-def _gpad_kernel_paired_flat(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    # tensor inputs; with soft=True an (S_hf, 1) od column (flat layout)
-    # follows invL_ref
-    gP_ref,  # (S_z, B_t)
-    pDp_ref,  # (S_hf, B_t) flat layout: struct rows then box rows
-    pDm_ref,
-    y0p_ref,
-    y0m_ref,
-    MGf_ref,  # (S_z, S_hf) == [MG_s' | H^-1] (flat half stack)
-    GLs_ref,  # (S_s, S_z) == GL_T' structured rows only
-    invL_ref,  # (1, 1) SMEM: 1/L for the identity-block rows
-    # outputs: z, yp, ym (+ wp, wm, zhat with diagnostics)
-    *rest,
-    iterations: int,
-    mm_dtype,
-    precision,
-    soft: bool = False,
-):
-    """Half-stack GPAD loop exploiting the input-box identity block.
-
-    Flat layout (condense._flat_reorder): dual-half rows are
-    [struct (S_s) | box (S_z)] — the box rows of P are exactly I, so
-    step 4's product for them is ``zhat / L`` (no MXU work; the TPU
-    analogue of ``StepFourGPADFlatParRows``, kernel_functions.cu:74-109)
-    and only the (S_s, S_z) structured block multiplies. Saves 2*n_z^2
-    flops/iteration vs the dense paired kernel (~33% at long horizons,
-    where m_h = 2 n_z + N). Scenario-minor layout as everywhere else."""
-    if soft:
-        od_ref, *rest = rest
-    else:
-        od_ref = None
-    z_ref, yp_ref, ym_ref, *w_refs = rest
-    wp_ref, wm_ref, zhat_ref = w_refs if w_refs else (None, None, None)
-    MGf = _load_op(MGf_ref, mm_dtype)
-    GLs = _load_op(GLs_ref, mm_dtype)
-    g_P = gP_ref[:]  # (S_z, B_t)
-    p_Dp = pDp_ref[:]  # (S_hf, B_t)
-    p_Dm = pDm_ref[:]
-    invL = invL_ref[0, 0]
-    od = None if od_ref is None else od_ref[:]  # (S_hf, 1), flat layout
-    y0p = y0p_ref[:]
-    y0m = y0m_ref[:]
-    z0 = g_P * 0.0
-
-    def body(k, carry):
-        yp, ym, yp_prev, ym_prev, z, _, _, _ = carry
-        beta_k = beta_ref[k]
-        theta_k = theta_ref[k]
-        wp = yp + beta_k * (yp - yp_prev)
-        wm = ym + beta_k * (ym - ym_prev)
-        zhat = -_kdot(MGf, wp - wm, precision) - g_P
-        z = (1.0 - theta_k) * z + theta_k * zhat
-        # step 4: structured rows via the MXU, box rows for free
-        q = jnp.concatenate(
-            [_kdot(GLs, zhat, precision), zhat * invL], axis=0
-        )
-        # soft rows damp their extrapolated dual (core._iteration's w_s)
-        wp_s = wp if od is None else wp * od
-        wm_s = wm if od is None else wm * od
-        yp_next = jnp.maximum(wp_s + q + p_Dp, 0.0)
-        ym_next = jnp.maximum(wm_s - q + p_Dm, 0.0)
-        return yp_next, ym_next, yp, ym, z, wp, wm, zhat
-
-    zero_h = p_Dp * 0.0
-    yp, ym, _, _, z, wp, wm, zhat = jax.lax.fori_loop(
-        0, iterations, body, (y0p, y0m, y0p, y0m, z0, zero_h, zero_h, z0)
-    )
-    z_ref[:] = z
-    yp_ref[:] = yp
-    ym_ref[:] = ym
-    if wp_ref is not None:
-        wp_ref[:] = wp
-        wm_ref[:] = wm
-        zhat_ref[:] = zhat
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "iterations", "matmul_dtype", "precision", "interpret", "diagnostics"
-    ),
-)
-def gpad_pallas_fixed_paired_flat(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    y0: jax.Array | None = None,
-    *,
-    iterations: int,
-    matmul_dtype: str = "float32",
-    precision: str = "highest",
-    interpret: bool = False,
-    diagnostics: bool = True,
-):
-    """Flat-layout paired kernel entry (requires ``data.n_struct``).
-
-    Same contract as ``gpad_pallas_fixed_paired``; dual-sized rows are
-    carried in the flat [struct | box] padded layout internally and mapped
-    back to the (B, 2, m_h) data order on exit. ``diagnostics=False``
-    drops the wp/wm/zhat outputs and returns (z, y, None, None)."""
-    if data.n_struct is None:
-        raise ValueError("flat kernel needs data with a detected identity block")
-    B = g_P.shape[0]
-    m_h, n_z, n_s = data.m_half, data.n_z, data.n_struct
-    S_s = _round_up(n_s, SUBLANE)
-    S_z = _round_up(n_z, SUBLANE)
-    S_hf = S_s + S_z
-    mm_dtype = jnp.dtype(matmul_dtype)
-    soft = data.soft_damp is not None
-    na, nz_coef = (
-        FLAT_PAIRED_ARRAYS if diagnostics else FLAT_PAIRED_ARRAYS_NODIAG
-    )
-    mats = 4 * (S_z * S_hf + S_s * S_z) + _od_mats(S_hf, soft)
-    B_t = pick_lane_tile(B, S_hf, na, nz_coef * S_z, mats=mats)
-    if B_t is None:
-        raise ValueError(
-            f"problem (m_half={m_h}, n_z={n_z}) does not fit the flat "
-            "kernel's VMEM budget; use engine='xla'"
-        )
-    B_p = _round_up(B, B_t)
-
-    def to_flat(x2):  # (B, m_h) -> (S_hf, B_p) in flat padded layout
-        return jnp.concatenate(
-            [_pad2(x2[:, :n_s].T, S_s, B_p), _pad2(x2[:, n_s:].T, S_z, B_p)],
-            axis=0,
-        )
-
-    MGf = _prep_operand(
-        jnp.concatenate(
-            [
-                _pad2(data.MG_T[:n_s].T, S_z, S_s),
-                _pad2(data.MG_T[n_s:].T, S_z, S_z),
-            ],
-            axis=1,
-        ),
-        mm_dtype,
-        precision,
-    )
-    GLs = _prep_operand(
-        _pad2(data.GL_T[:, :n_s].T, S_s, S_z), mm_dtype, precision
-    )
-    invL = (1.0 / data.L).astype(jnp.float32).reshape(1, 1)
-    gPT = _pad2(g_P.T, S_z, B_p)
-    pDpT = to_flat(p_D[:, 0, :])
-    pDmT = to_flat(p_D[:, 1, :])
-    if y0 is None:
-        y0pT = jnp.zeros((S_hf, B_p), dtype=jnp.float32)
-        y0mT = y0pT
-    else:
-        y0b = _norm_y0(y0, B, m_h)
-        y0pT = to_flat(y0b[:, 0, :])
-        y0mT = to_flat(y0b[:, 1, :])
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-
-    kernel = functools.partial(
-        _gpad_kernel_paired_flat, iterations=iterations, mm_dtype=mm_dtype,
-        precision=_kernel_precision(mm_dtype, precision), soft=soft,
-    )
-    lane_spec_z = pl.BlockSpec(
-        (S_z, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-    lane_spec_h = pl.BlockSpec(
-        (S_hf, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-    out_specs = [lane_spec_z, lane_spec_h, lane_spec_h]
-    out_shape = [
-        jax.ShapeDtypeStruct((S_z, B_p), jnp.float32),
-        jax.ShapeDtypeStruct((S_hf, B_p), jnp.float32),
-        jax.ShapeDtypeStruct((S_hf, B_p), jnp.float32),
-    ]
-    if diagnostics:
-        out_specs += [lane_spec_h, lane_spec_h, lane_spec_z]
-        out_shape += [
-            jax.ShapeDtypeStruct((S_hf, B_p), jnp.float32),
-            jax.ShapeDtypeStruct((S_hf, B_p), jnp.float32),
-            jax.ShapeDtypeStruct((S_z, B_p), jnp.float32),
-        ]
-    in_specs = [
-        lane_spec_z,  # g_P
-        lane_spec_h,  # p_D plus rows (flat layout)
-        lane_spec_h,  # p_D minus rows
-        lane_spec_h,  # y0 plus rows
-        lane_spec_h,  # y0 minus rows
-        _const_spec(MGf),
-        _const_spec(GLs),
-        pl.BlockSpec(
-            (1, 1), lambda i, th, be: (0, 0),
-            memory_space=pltpu.SMEM,
-        ),  # 1/L
-    ]
-    operands = [theta, beta, gPT, pDpT, pDmT, y0pT, y0mT, MGf, GLs, invL]
-    if soft:
-        # (S_hf, 1) od column in the flat [struct | box] row order
-        od_h = 1.0 - data.soft_damp.astype(jnp.float32)
-        od = jnp.concatenate([
-            jnp.pad(od_h[:n_s, None], ((0, S_s - n_s), (0, 0)),
-                    constant_values=1.0),
-            jnp.pad(od_h[n_s:, None], ((0, S_z - (m_h - n_s)), (0, 0)),
-                    constant_values=1.0),
-        ])
-        in_specs.append(_const_spec(od))
-        operands.append(od)
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(B_p // B_t,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-        ),
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=(2 * S_z * S_hf + 2 * S_s * S_z) * iterations * B_p,
-            bytes_accessed=mats + 4 * B_p * (4 * S_hf + 2 * S_z),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-    z, yp, ym = outs[:3]
-
-    def from_flat(xf):  # (S_hf, B_p) -> (B, m_h) in data row order
-        return jnp.concatenate(
-            [xf[:n_s, :B], xf[S_s : S_s + n_z, :B]], axis=0
-        ).T
-
-    y = jnp.stack([from_flat(yp), from_flat(ym)], axis=1)
-    if not diagnostics:
-        return z[:n_z, :B].T, y, None, None
-    wp, wm, zhat = outs[3:]
-    w = jnp.stack([from_flat(wp), from_flat(wm)], axis=1)
-    return z[:n_z, :B].T, y, w, zhat[:n_z, :B].T
-
-
-def _gpad_kernel_flat_tiled(
-    # scalar prefetch
-    theta_ref,
-    beta_ref,
-    # ANY (HBM) inputs: per-scenario constants + warm-start dual
-    cp_hbm,  # (S_hf, B_p) p_D plus rows, flat [struct | box | pad] layout
-    cm_hbm,
-    gP_hbm,  # (S_z, B_p)
-    ypi_hbm,  # (S_hf, B_p) warm-start duals (zeros when cold)
-    ymi_hbm,
-    # VMEM-blocked streamed operands
-    MGf_ref,  # (S_z, T) column chunk of [MG_s' | H^-1 | 0]
-    GLs_ref,  # (T, S_z) row chunk of (P_s / L) — structural rows only
-    invL_ref,  # (1, 1) SMEM: 1/L for the identity-block rows
-    # ANY (HBM) outputs
-    z_hbm,
-    yp_hbm,
-    ym_hbm,
-    wp_hbm,
-    wm_hbm,
-    zh_hbm,
-    # scratch (the ONLY VMEM-resident state)
-    ypb,  # (2, S_hf, B_t) ping-pong: slot it%2 = y at the top of iteration it
-    ymb,
-    wpb,  # (S_hf, B_t) current-iteration extrapolated duals
-    wmb,
-    cpb,  # (S_hf, B_t) p_D constants
-    cmb,
-    gPb,  # (S_z, B_t)
-    zb,  # (S_z, B_t) primal convex combination
-    zhb,  # (S_z, B_t) step-2 accumulator, finalized to zhat at the A->B edge
-    sem,  # (8,) DMA semaphores
-    *,
-    n_it: int,
-    B_t: int,
-    R_A: int,
-    S_s: int,
-    S_z: int,
-    mm_dtype,
-    precision,
-):
-    """``n_it`` flat mvp-form iterations with BOTH operands streamed from HBM.
-
-    The whole-VMEM flat kernel (``_gpad_kernel_paired_flat``) declines
-    problems whose operands + ~26 double-buffered state blocks exceed VMEM —
-    notably the reference's flagship 30x30 shape, where the flat mvp form
-    does ~25% fewer flops per iteration than the dual form the tiled dual
-    kernel runs (2*n_z*(m_h + n_struct) vs 2*m_h^2;
-    ``kernel_functions.cu:74-109`` is the CUDA flat analogue). State lives
-    in VMEM scratch (ANY-ref edges DMA'd once per batch tile); per
-    iteration the grid's third axis first streams the step-2 operand
-    ``MGf = [MG_s' | H^-1]`` one (S_z, T) column chunk at a time
-    (accumulating ``zhat``), then the step-4 structural operand
-    ``GLs = P_s / L`` one (T, S_z) row chunk at a time (projecting dual
-    rows); the box rows ride the last chunk for free (``zhat / L``). At
-    B_t lanes the combined stream's intensity is B_t/2 flops/byte —
-    compute-bound for fp32-highest on v5e from B_t=128 up. Grid:
-    (batch_tiles, n_it, R_A + R_B). No restart (mvp form carries no
-    momentum recursion in the kernels); fixed mode only.
-    """
-    i, it, r = pl.program_id(0), pl.program_id(1), pl.program_id(2)
-    R = pl.num_programs(2)
-    T = GLs_ref.shape[-2]
-    cur = jax.lax.rem(it, 2)
-    prv = jax.lax.rem(it + 1, 2)
-    off = i * B_t
-
-    @pl.when(jnp.logical_and(it == 0, r == 0))
-    def _load_tile():
-        lane = pl.ds(off, B_t)
-        copies = (
-            (cp_hbm.at[:, lane], cpb, 0),
-            (cm_hbm.at[:, lane], cmb, 1),
-            (gP_hbm.at[:, lane], gPb, 2),
-            (ypi_hbm.at[:, lane], ypb.at[0], 3),
-            (ymi_hbm.at[:, lane], ymb.at[0], 4),
-            (ypi_hbm.at[:, lane], ypb.at[1], 5),
-            (ymi_hbm.at[:, lane], ymb.at[1], 6),
-        )
-        dmas = [
-            pltpu.make_async_copy(src, dst, sem.at[k]) for src, dst, k in copies
-        ]
-        for dma in dmas:
-            dma.start()
-        for dma in dmas:
-            dma.wait()
-        zb[:] = gPb[:] * 0.0
-
-    @pl.when(r < R_A)
-    def _phase_a():
-        # step 1 for this column chunk of dual rows (recomputed from the
-        # ping-pong slots — w is stored so phase B and the diagnostics
-        # outputs reuse it) + the step-2 partial product
-        beta_k = beta_ref[it]
-        cols = pl.ds(r * T, T)
-        ypc = ypb[cur, cols]
-        ymc = ymb[cur, cols]
-        wp = ypc + beta_k * (ypc - ypb[prv, cols])
-        wm = ymc + beta_k * (ymc - ymb[prv, cols])
-        wpb[cols] = wp
-        wmb[cols] = wm
-        part = _kdot(_load_op(MGf_ref, mm_dtype), wp - wm, precision)
-
-        @pl.when(r == 0)
-        def _init_acc():
-            zhb[:] = part
-
-        @pl.when(r > 0)
-        def _accum():
-            zhb[:] = zhb[:] + part
-
-    @pl.when(r == R_A)
-    def _finalize_zhat():
-        # steps 2 (constant term) and 3 once per iteration
-        theta_k = theta_ref[it]
-        zh = -zhb[:] - gPb[:]
-        zhb[:] = zh
-        zb[:] = (1.0 - theta_k) * zb[:] + theta_k * zh
-
-    @pl.when(r >= R_A)
-    def _phase_b():
-        # step 4 for this row chunk of STRUCTURAL dual rows
-        rows = pl.ds((r - R_A) * T, T)
-        q = _kdot(_load_op(GLs_ref, mm_dtype), zhb[:], precision)
-        ypb[prv, rows] = jnp.maximum(wpb[rows] + q + cpb[rows], 0.0)
-        ymb[prv, rows] = jnp.maximum(wmb[rows] - q + cmb[rows], 0.0)
-
-        @pl.when(r == R - 1)
-        def _box_rows():
-            # identity-block rows: q = zhat / L, no MXU work (the flat cut)
-            box = pl.ds(S_s, S_z)
-            qb = zhb[:] * invL_ref[0, 0]
-            ypb[prv, box] = jnp.maximum(wpb[box] + qb + cpb[box], 0.0)
-            ymb[prv, box] = jnp.maximum(wmb[box] - qb + cmb[box], 0.0)
-
-    @pl.when(jnp.logical_and(it == n_it - 1, r == R - 1))
-    def _store_tile():
-        lane = pl.ds(off, B_t)
-        copies = (
-            (zb, z_hbm.at[:, lane], 0),
-            (ypb.at[prv], yp_hbm.at[:, lane], 1),
-            (ymb.at[prv], ym_hbm.at[:, lane], 2),
-            (wpb, wp_hbm.at[:, lane], 3),
-            (wmb, wm_hbm.at[:, lane], 4),
-            (zhb, zh_hbm.at[:, lane], 5),
-        )
-        dmas = [
-            pltpu.make_async_copy(src, dst, sem.at[k]) for src, dst, k in copies
-        ]
-        for dma in dmas:
-            dma.start()
-        for dma in dmas:
-            dma.wait()
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "iterations", "matmul_dtype", "precision", "interpret", "diagnostics",
-        "tile",
-    ),
-)
-def gpad_pallas_fixed_flat_tiled(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    y0: jax.Array | None = None,
-    *,
-    iterations: int,
-    matmul_dtype: str = "float32",
-    precision: str = "highest",
-    interpret: bool = False,
-    diagnostics: bool = True,
-    tile: int | None = None,
-):
-    """Whole-solve entry for the HBM-streamed flat (mvp-form) kernel.
-
-    Same contract as ``gpad_pallas_fixed_paired_flat`` ((z, y, w, zhat) in
-    batch-major convention); used when the whole-VMEM flat kernel's budget
-    guard declines the problem (``flat_fits_vmem`` False) but
-    ``flat_tiled_fits`` holds — the reference's flagship 30x30 shape being
-    the motivating case (VERDICT round 2 item 3). ``tile`` overrides the
-    streamed chunk width (tests use small values to exercise multi-chunk
-    grids on tiny problems).
-
-    Chip verdict (AB_FLAGSHIP.json, interleaved A/B at 30x30): this kernel
-    measures 0.87x the XLA mvp+flat path at precision "highest" and 0.72x
-    at "high", and the roofline decomposition shows XLA is already within
-    1.1% of its own MXU-only time there — so ``engine="auto"`` keeps
-    routing VMEM-oversized flat stacks to XLA (docs/DESIGN.md section 8g);
-    this kernel serves the forced-``pallas`` path."""
-    if data.n_struct is None or data.n_struct == 0:
-        raise ValueError(
-            "flat tiled kernel needs paired data with a non-empty "
-            "identity-block structural region (GPADData.n_struct)"
-        )
-    if data.soft_damp is not None:
-        raise ValueError(
-            "the streamed flat tiled kernel does not carry soft "
-            "(dual-damped) rows; use engine='xla'"
-        )
-    B = g_P.shape[0]
-    m_h, n_z, n_s = data.m_half, data.n_z, data.n_struct
-    picked = pick_flat_tiled_tiles(m_h, n_z, n_s, tile=tile)
-    if picked is None:
-        raise ValueError(
-            f"problem (m_half={m_h}, n_z={n_z}) exceeds even the flat "
-            "tiled kernel's VMEM budget; use engine='xla'"
-        )
-    B_t, T, S_s, S_z, S_hf = picked
-    B_p = _round_up(B, B_t)
-    R_A = S_hf // T
-    R_B = S_s // T
-    if not interpret and T % LANE != 0 and R_A > 1:
-        # Mosaic lane-block rule: a streamed MGf column chunk must be a
-        # 128-multiple (or the full width). Small tiles exist to exercise
-        # the multi-chunk grid in interpret mode; on hardware they fail
-        # to lower (chip-verified), so refuse them loudly here.
-        raise ValueError(
-            f"tile={T} is interpret-only: on hardware the streamed chunk "
-            f"width must be a multiple of {LANE} (or cover the full "
-            f"padded dual height {S_hf})"
-        )
-    mm_dtype = jnp.dtype(matmul_dtype)
-
-    def to_flat(x2):  # (B, m_h) -> (S_hf, B_p) in flat padded layout
-        return jnp.concatenate(
-            [
-                _pad2(x2[:, :n_s].T, S_s, B_p),
-                _pad2(x2[:, n_s:].T, S_hf - S_s, B_p),
-            ],
-            axis=0,
-        )
-
-    # step-2 operand [MG_s' | H^-1 | 0] — box columns are MG_T's identity
-    # rows (== H^-1), tail-pad columns zero (inert: their dual rows stay 0)
-    MGf = _prep_operand(
-        jnp.concatenate(
-            [
-                _pad2(data.MG_T[:n_s].T, S_z, S_s),
-                _pad2(data.MG_T[n_s:].T, S_z, S_hf - S_s),
-            ],
-            axis=1,
-        ),
-        mm_dtype,
-        precision,
-    )
-    GLs = _prep_operand(
-        _pad2(data.GL_T[:, :n_s].T, S_s, S_z), mm_dtype, precision
-    )
-    invL = (1.0 / data.L).astype(jnp.float32).reshape(1, 1)
-    gPT = _pad2(g_P.T, S_z, B_p)
-    cpT = to_flat(p_D[:, 0, :])
-    cmT = to_flat(p_D[:, 1, :])
-    if y0 is None:
-        ypT = jnp.zeros((S_hf, B_p), dtype=jnp.float32)
-        ymT = ypT
-    else:
-        y0b = _norm_y0(y0, B, m_h)
-        ypT = to_flat(y0b[:, 0, :])
-        ymT = to_flat(y0b[:, 1, :])
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-
-    kernel = functools.partial(
-        _gpad_kernel_flat_tiled,
-        n_it=iterations,
-        B_t=B_t,
-        R_A=R_A,
-        S_s=S_s,
-        S_z=S_z,
-        mm_dtype=mm_dtype,
-        precision=_kernel_precision(mm_dtype, precision),
-    )
-    any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    if MGf.ndim == 3:  # stacked bf16 (hi, lo) pair of the 3-pass fp32 path
-        mgf_spec = pl.BlockSpec(
-            (2, S_z, T),
-            lambda i, it, r, th, be: (0, 0, jnp.minimum(r, R_A - 1)),
-            memory_space=pltpu.VMEM,
-        )
-        gls_spec = pl.BlockSpec(
-            (2, T, S_z),
-            lambda i, it, r, th, be: (0, jnp.maximum(r - R_A, 0), 0),
-            memory_space=pltpu.VMEM,
-        )
-    else:
-        mgf_spec = pl.BlockSpec(
-            (S_z, T),
-            lambda i, it, r, th, be: (0, jnp.minimum(r, R_A - 1)),
-            memory_space=pltpu.VMEM,
-        )
-        gls_spec = pl.BlockSpec(
-            (T, S_z),
-            lambda i, it, r, th, be: (jnp.maximum(r - R_A, 0), 0),
-            memory_space=pltpu.VMEM,
-        )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(B_p // B_t, iterations, R_A + R_B),
-        in_specs=[any_spec] * 5
-        + [
-            mgf_spec,
-            gls_spec,
-            pl.BlockSpec(
-                (1, 1), lambda i, it, r, th, be: (0, 0),
-                memory_space=pltpu.SMEM,
-            ),
-        ],
-        out_specs=[any_spec] * 6,
-        scratch_shapes=[
-            pltpu.VMEM((2, S_hf, B_t), jnp.float32),  # y+ ping-pong
-            pltpu.VMEM((2, S_hf, B_t), jnp.float32),  # y- ping-pong
-            pltpu.VMEM((S_hf, B_t), jnp.float32),  # w+
-            pltpu.VMEM((S_hf, B_t), jnp.float32),  # w-
-            pltpu.VMEM((S_hf, B_t), jnp.float32),  # c+ (p_D plus)
-            pltpu.VMEM((S_hf, B_t), jnp.float32),  # c- (p_D minus)
-            pltpu.VMEM((S_z, B_t), jnp.float32),  # g_P
-            pltpu.VMEM((S_z, B_t), jnp.float32),  # z
-            pltpu.VMEM((S_z, B_t), jnp.float32),  # zhat accumulator
-            pltpu.SemaphoreType.DMA((8,)),
-        ],
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            [jax.ShapeDtypeStruct((S_z, B_p), jnp.float32)]
-            + [jax.ShapeDtypeStruct((S_hf, B_p), jnp.float32)] * 4
-            + [jax.ShapeDtypeStruct((S_z, B_p), jnp.float32)]
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=(2 * S_z * S_hf + 2 * S_s * S_z) * iterations * B_p,
-            # both operands stream once per iteration per batch tile
-            bytes_accessed=4 * (S_z * S_hf + S_s * S_z) * iterations
-            * (B_p // B_t)
-            + 4 * 11 * S_hf * B_p,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(theta, beta, cpT, cmT, gPT, ypT, ymT, MGf, GLs, invL)
-    z, yp, ym, wp, wm, zhat = outs
-
-    def from_flat(xf):  # (S_hf, B_p) -> (B, m_h) in data row order
-        return jnp.concatenate(
-            [xf[:n_s, :B], xf[S_s : S_s + n_z, :B]], axis=0
-        ).T
-
-    y = jnp.stack([from_flat(yp), from_flat(ym)], axis=1)
-    if not diagnostics:
-        # the streamed kernel's state already lives at HBM edges, so the
-        # w/zhat writes are one DMA per tile — only the host-side residual
-        # recovery is skipped by the flag
-        return z[:n_z, :B].T, y, None, None
-    w = jnp.stack([from_flat(wp), from_flat(wm)], axis=1)
-    return z[:n_z, :B].T, y, w, zhat[:n_z, :B].T
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "iterations", "matmul_dtype", "precision", "interpret", "diagnostics"
-    ),
-)
-def gpad_pallas_fixed(
-    data: GPADData,
-    g_P: jax.Array,
-    p_D: jax.Array,
-    y0: jax.Array | None = None,
-    *,
-    iterations: int,
-    matmul_dtype: str = "float32",
-    precision: str = "highest",
-    interpret: bool = False,
-    diagnostics: bool = True,
-):
-    """Run the fused fixed-budget GPAD kernel on a (B, n_z)/(B, m) batch.
-
-    Scenario-minor layout (see ``_gpad_kernel``). Returns padded-stripped
-    final (z, y, w, zhat) in the batch-major external convention.
-    ``diagnostics=False`` drops the w/zhat outputs and returns
-    (z, y, None, None)."""
-    if data.soft_damp is not None:
-        raise ValueError(
-            "the dense (unpaired) kernel does not carry soft (dual-damped) "
-            "rows; soft data is paired — use the paired kernels or "
-            "engine='xla'"
-        )
-    B = g_P.shape[0]
-    m, n_z = data.m, data.n_z
-    S_m = _round_up(m, SUBLANE)
-    S_z = _round_up(n_z, SUBLANE)
-    # VMEM holds ~13 (S_m, B_t) + ~9 (S_z, B_t) arrays (carries + double-
-    # buffered in/out blocks) plus the two constant operands
-    mats = 2 * 4 * S_m * S_z
-    na, nz_coef = DENSE_ARRAYS if diagnostics else DENSE_ARRAYS_NODIAG
-    B_t = pick_lane_tile(B, S_m, na, nz_coef * S_z, mats=mats)
-    if B_t is None:
-        raise ValueError(
-            f"problem (m={m}, n_z={n_z}) does not fit the fused kernel's VMEM "
-            "budget; use engine='xla'"
-        )
-    B_p = _round_up(B, B_t)
-
-    mm_dtype = jnp.dtype(matmul_dtype)
-    MGt = _prep_operand(
-        _pad2(data.MG_T.T, S_z, S_m), mm_dtype, precision
-    )  # (n_z, m) padded
-    GLt = _prep_operand(
-        _pad2(data.GL_T.T, S_m, S_z), mm_dtype, precision
-    )  # (m, n_z) padded
-    gPT = _pad2(g_P.T, S_z, B_p)
-    pDT = _pad2(p_D.T, S_m, B_p)
-    if y0 is None:
-        y0T = jnp.zeros((S_m, B_p), dtype=jnp.float32)
-    else:
-        y0b = jnp.asarray(y0, dtype=jnp.float32)
-        if y0b.ndim > 2:  # arbitrary leading batch dims, like _norm_y0
-            y0b = y0b.reshape((-1, y0b.shape[-1]))
-        y0b = jnp.broadcast_to(y0b, (B, m))
-        y0T = _pad2(y0b.T, S_m, B_p)
-    theta = data.theta[:iterations]
-    beta = data.beta[:iterations]
-
-    grid = (B_p // B_t,)
-    kernel = functools.partial(
-        _gpad_kernel,
-        iterations=iterations,
-        mm_dtype=mm_dtype,
-        precision=_kernel_precision(mm_dtype, precision),
-    )
-    # index maps receive (grid_idx, *scalar_prefetch_refs)
-    lane_spec_z = pl.BlockSpec(
-        (S_z, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-    lane_spec_m = pl.BlockSpec(
-        (S_m, B_t), lambda i, th, be: (0, i), memory_space=pltpu.VMEM
-    )
-
-    out_specs = [lane_spec_z, lane_spec_m]  # z, y
-    out_shape = [
-        jax.ShapeDtypeStruct((S_z, B_p), jnp.float32),
-        jax.ShapeDtypeStruct((S_m, B_p), jnp.float32),
-    ]
-    if diagnostics:
-        out_specs += [lane_spec_m, lane_spec_z]  # w, zhat
-        out_shape += [
-            jax.ShapeDtypeStruct((S_m, B_p), jnp.float32),
-            jax.ShapeDtypeStruct((S_z, B_p), jnp.float32),
-        ]
-    flops_mm = 2 * S_m * S_z * 2 * iterations * B_p
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,  # theta, beta -> SMEM
-            grid=grid,
-            in_specs=[
-                lane_spec_z,  # g_P
-                lane_spec_m,  # p_D
-                lane_spec_m,  # y0 (zeros when cold)
-                _const_spec(MGt),  # MG_T' (constant index map: fetched once)
-                _const_spec(GLt),  # GL_T'
-            ],
-            out_specs=out_specs,
-        ),
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=flops_mm, bytes_accessed=mats + 4 * B_p * (2 * S_m + 2 * S_z),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(theta, beta, gPT, pDT, y0T, MGt, GLt)
-    z, y = outs[:2]
-    if not diagnostics:
-        return z[:n_z, :B].T, y[:m, :B].T, None, None
-    w, zhat = outs[2:]
-    return (
-        z[:n_z, :B].T,
-        y[:m, :B].T,
-        w[:m, :B].T,
-        zhat[:n_z, :B].T,
-    )
-
-
-def solve_batch_pallas(
-    data: GPADData, g_P: jax.Array, p_D: jax.Array, config, y0=None
-) -> SolveResult:
-    """Pallas-engine entry called from ``solver.core.solve_batch``.
-
-    Residuals/gap are recovered outside the kernel with one cheap matmul
-    (same math as the XLA engine's ``_residuals``)."""
-    from tpu_gpad.solver import core as _core
-
+from jax.experimental.pallas import triton as pl_triton
+
+from tpu_gpad.types import GPADData
+
+# Admission, measured on an H100 (PERF.md): the largest dual half-height
+# m_half the kernel takes. Solves run in 16-column chunks and win up to
+# nine chunks (3.3x the XLA loop at m_half=140; at 210, in 32-column
+# chunks, 12x slower: the blocks of -D no longer fit in registers). Larger
+# duals are real GEMMs that the XLA loop hands to cuBLAS.
+MAX_DUAL_ROWS = 144
+# Launch shape, chosen on an H100 at the headline shape (PERF.md):
+# scenarios per program and warps per program.
+BLOCK_B = 16
+NUM_WARPS = 4
+# Every product runs as (CHUNK, CHUNK) blocks in full fp32 on the FMA units,
+# which need a contraction this short to keep both operands in registers;
+# the blocks of -D are loaded once before the loop. Every fp32 precision
+# tier runs this way: "high" and "default" allow TF32 but do not require
+# it, and TF32 (or bf16) tensor-core blocks ran 6x slower than these
+# (PERF.md). bfloat16 operands take the XLA loop.
+CHUNK = 16
+_MIN_ROWS = 16  # Triton's dot needs every operand dimension >= 16
+
+
+def on_gpu() -> bool:
+    """The backend seam: the kernel compiles only for a CUDA GPU."""
+    return jax.default_backend() == "gpu"
+
+
+def padded_rows(m_half: int) -> int:
+    """Dual half-height padded to the power of two Triton blocks need."""
+    return max(_MIN_ROWS, 1 << (int(m_half) - 1).bit_length())
+
+
+def admits(data: GPADData, config) -> tuple[bool, str]:
+    """(ok, reason): can the fused dual kernel run this (data, config)?"""
+    if not (data.paired and data.D is not None):
+        return False, "needs paired data with the dual Hessian D"
+    if config.mode != "fixed":
+        return False, "covers mode='fixed' only"
     if config.model_axis is not None:
-        raise ValueError(
-            "engine='pallas' does not support dual-dimension tensor "
-            "parallelism; use engine='xla' for model-axis sharding"
-        )
-    if config.restart and not (data.paired and data.D is not None):
-        raise ValueError(
-            "engine='pallas' supports restart=True only in the dual form "
-            "(paired data with D); use engine='xla' here"
-        )
-    batch_shape = g_P.shape[:-1]
-    Bflat = int(np.prod(batch_shape)) if batch_shape else 1
-    gP2 = g_P.reshape(Bflat, data.n_z)
-    if data.paired:
-        pD2 = p_D.reshape(Bflat, 2, data.m_half)
-    else:
-        pD2 = p_D.reshape(Bflat, data.m)
-    interpret = jax.default_backend() != "tpu"
+        return False, "does not shard the dual dimension (model_axis)"
+    if config.form == "mvp":
+        return False, "runs the dual form only"
+    if config.iterations is not None and config.iterations < 1:
+        return False, "needs at least one iteration"
+    if jnp.dtype(config.matmul_dtype) != jnp.float32:
+        return False, "runs fp32 operands only (bf16 operands take the XLA loop)"
+    if data.m_half > MAX_DUAL_ROWS:
+        return False, f"m_half={data.m_half} > MAX_DUAL_ROWS={MAX_DUAL_ROWS}"
+    return True, ""
 
-    if config.mode == "eps":
-        dual_ok = (
-            data.paired
-            and data.D is not None
-            and config.model_axis is None
-            and config.form in ("auto", "dual")
-            and (dual_fits_vmem(data, chunked=True) or dual_tiled_fits(data))
-        )
-        if dual_ok:
-            res = gpad_pallas_eps_dual(
-                data, gP2, pD2, config, _norm_y0(y0, Bflat, data.m_half)
-            )
+
+def _dual_kernel(
+    theta_ref, beta_ref, e_ref, pp_ref, pm_ref, dn_ref, *refs,
+    iterations: int, n_chunks: int, chunk: int,
+    restart: bool, warm: bool, soft: bool, diagnostics: bool,
+):
+    """One block of scenarios through the whole fixed-budget dual loop.
+
+    Same algebra, in the same order of fp32 additions, as
+    ``core._dual_loop``, with the negation of D folded into ``dn``:
+
+        w+- = y+- + beta (y+- - y_prev+-)
+        q   = (w+ - w-) @ (-D) - e,      e = g_P GL_T
+        y+  = relu(w+ (1 - damp) + q + p+),  y- = relu(w- (1 - damp) - q + p-)
+        s  += theta ((w+ - w-) - s)
+
+    e stays apart from the offsets p+-: folded into them once, its fp32
+    rounding is a fixed error that the fixed point amplifies (measured:
+    3x the XLA loop's distance from a float64 loop, PERF.md).
+
+    Every state row is held as ``n_chunks`` column chunks of width
+    ``chunk``, and the product runs as n_chunks^2 (chunk, chunk) block
+    products; columns past the last chunk holding dual rows are never
+    touched. With several chunks the blocks of -D are loaded once, before
+    the loop. The last iteration is peeled so the final w (a diagnostics
+    output) never has to be a loop carry."""
+    refs = list(refs)
+    y0p_ref, y0m_ref = (refs.pop(0), refs.pop(0)) if warm else (None, None)
+    od_ref = refs.pop(0) if soft else None
+    s_ref, yp_ref, ym_ref, *w_refs = refs
+    f32 = jnp.float32
+    cols = [pl.ds(j * chunk, chunk) for j in range(n_chunks)]
+    load = lambda ref: tuple(ref[:, c] for c in cols)
+    e, pp, pm = load(e_ref), load(pp_ref), load(pm_ref)
+    od = None if od_ref is None else load(od_ref)  # (1, chunk): 1 - soft_damp
+    zero = tuple(jnp.zeros_like(c) for c in e)
+    yp0 = load(y0p_ref) if warm else zero
+    ym0 = load(y0m_ref) if warm else zero
+    one = jnp.ones((e[0].shape[0], 1), f32)
+    dn_blk = lambda c, j: dn_ref[cols[c], cols[j]]
+    if n_chunks > 1:
+        dn_h = [[dn_blk(c, j) for j in range(n_chunks)] for c in range(n_chunks)]
+        dn_blk = lambda c, j: dn_h[c][j]
+
+    def step(k, carry):
+        yp, ym, ypp, ymp, s, th, thp = carry
+        if restart:
+            theta_k, beta_k = th, th * (1.0 / thp - 1.0)
         else:
-            # mvp-form eps routes through the XLA engine's while_loop.
-            import dataclasses
-
-            res = _core._solve_eps(
-                data, gP2, pD2, dataclasses.replace(config, engine="xla"), y0
-            )
-    else:
-        diag = config.diagnostics
-        soft = data.soft_damp is not None
-        if soft and not data.paired:
-            raise ValueError(
-                "engine='pallas' carries soft (dual-damped) rows only in "
-                "the paired kernels; use engine='xla' for unpaired soft data"
-            )
-        form = _core.resolve_form(data, config)
-        if form == "dual":
-            # the whole-VMEM kernel when the budget admits it; the
-            # HBM-streamed tiled kernel for oversized duals (same contract)
-            if not dual_fits_vmem(data) and soft:
-                raise ValueError(
-                    "soft (dual-damped) dual stack exceeds the whole-VMEM "
-                    "kernel and the streamed tiled kernel does not carry "
-                    "soft rows; use engine='xla'"
-                )
-            fixed = (
-                gpad_pallas_fixed_dual
-                if dual_fits_vmem(data)
-                else gpad_pallas_fixed_dual_tiled
-            )
-        elif data.paired:
-            # flat (identity-block) variant when detected + it fits:
-            # 2*n_z^2 fewer flops/iter than the dense paired product.
-            # VMEM-oversized flat stacks stream both operands from HBM
-            # (gpad_pallas_fixed_flat_tiled) instead of demoting to the
-            # dense paired kernel (which cannot fit them either).
-            if _core.resolve_flat(data, config):
-                if flat_fits_vmem(data):
-                    fixed = gpad_pallas_fixed_paired_flat
-                elif flat_tiled_fits(data):  # declines soft (no od stream)
-                    fixed = gpad_pallas_fixed_flat_tiled
-                else:
-                    fixed = gpad_pallas_fixed_paired
-            else:
-                fixed = gpad_pallas_fixed_paired
+            theta_k, beta_k = theta_ref[k], beta_ref[k]
+        wp = tuple(y + beta_k * (y - yq) for y, yq in zip(yp, ypp))
+        wm = tuple(y + beta_k * (y - yq) for y, yq in zip(ym, ymp))
+        wd = tuple(a - b for a, b in zip(wp, wm))
+        q = [
+            functools.reduce(jnp.add, [
+                jnp.dot(wd[c], dn_blk(c, j), precision=jax.lax.Precision.HIGHEST,
+                        preferred_element_type=f32)
+                for c in range(n_chunks)
+            ]) - e[j]
+            for j in range(n_chunks)
+        ]
+        wp_s = wp if od is None else tuple(a * o for a, o in zip(wp, od))
+        wm_s = wm if od is None else tuple(a * o for a, o in zip(wm, od))
+        yp_n = tuple(jnp.maximum(a + qj + c, 0.0) for a, qj, c in zip(wp_s, q, pp))
+        ym_n = tuple(jnp.maximum(a - qj + c, 0.0) for a, qj, c in zip(wm_s, q, pm))
+        s = tuple(si + theta_k * (x - si) for si, x in zip(s, wd))
+        if restart:
+            # O'Donoghue-Candes: restart iff (w - y+) . (y+ - y) > 0 over
+            # both halves; padded lanes contribute zeros
+            r = functools.reduce(jnp.add, [
+                jnp.sum((a - b) * (b - c), axis=1, keepdims=True)
+                for a, b, c in zip(wp + wm, yp_n + ym_n, yp + ym)
+            ])
+            mask = r > 0.0
+            th_n = jnp.where(mask, 1.0, th * (jnp.sqrt(th * th + 4.0) - th) * 0.5)
+            thp = jnp.where(mask, 1.0, th)
+            ypp = tuple(jnp.where(mask, a, b) for a, b in zip(yp_n, yp))
+            ymp = tuple(jnp.where(mask, a, b) for a, b in zip(ym_n, ym))
+            th = th_n
         else:
-            fixed = gpad_pallas_fixed
-        if config.restart and form != "dual":
-            raise ValueError(
-                "engine='pallas' supports restart=True only in the dual form"
-            )
-        kw = {}
-        if form == "dual":
-            kw["y0"] = _norm_y0(y0, Bflat, data.m_half)
-            kw["restart"] = config.restart
-        elif data.paired and y0 is not None:
-            kw["y0"] = _norm_y0(y0, Bflat, data.m_half)
-        elif y0 is not None:
-            y0d = jnp.asarray(y0, dtype=jnp.float32)
-            if y0d.ndim > 2:
-                y0d = y0d.reshape((-1, y0d.shape[-1]))
-            kw["y0"] = jnp.broadcast_to(y0d, (Bflat, data.m))
-        z, y, w, zhat = fixed(
-            data,
-            gP2,
-            pD2,
-            iterations=config.iterations,
-            matmul_dtype=config.matmul_dtype,
-            precision=config.precision,
-            interpret=interpret,
-            diagnostics=diag,
-            **kw,
-        )
-        if diag:
-            mm = _core._make_matmul(config)
-            viol_z, _, gap = _core._residuals(
-                data, gP2, pD2, z, zhat, w, mm, y=y
-            )
-            residual = jnp.maximum(viol_z, 0.0)
-        else:
-            # residual-free serving mode: the diagnostic outputs were never
-            # materialized (see SolverConfig.diagnostics)
-            residual = jnp.full((Bflat,), jnp.nan, dtype=jnp.float32)
-            gap = residual
-        res = SolveResult(
-            u=z[:, : data.n_u],
-            z=z,
-            y=y,
-            iterations=jnp.full((Bflat,), config.iterations, dtype=jnp.int32),
-            residual=residual,
-            gap=gap,
-            converged=jnp.ones((Bflat,), dtype=bool),
-        )
+            ypp, ymp = yp, ym
+        return (yp_n, ym_n, ypp, ymp, s, th, thp), wp, wm
 
-    def unflatten(x):
-        return x.reshape(batch_shape + x.shape[1:])
+    carry = (yp0, ym0, yp0, ym0, zero, one, one)
+    carry = jax.lax.fori_loop(
+        0, iterations - 1, lambda k, c: step(k, c)[0], carry
+    )
+    (yp, ym, _, _, s, _, _), wp, wm = step(iterations - 1, carry)
+    outs = [(s_ref, s), (yp_ref, yp), (ym_ref, ym)]
+    if diagnostics:
+        outs += [(w_refs[0], wp), (w_refs[1], wm)]
+    for ref, val in outs:
+        for c, v in zip(cols, val):
+            ref[:, c] = v
 
-    return jax.tree.map(unflatten, res)
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("iterations", "restart", "diagnostics", "interpret"),
+)
+def _dual_call(
+    D, theta, beta, e, p_D, y0, od, *, iterations, restart, diagnostics,
+    interpret,
+):
+    B, m_h = e.shape
+    S = padded_rows(m_h)
+    chunk = min(CHUNK, S)
+    n_chunks = -(-m_h // chunk)
+    B_p = -(-B // BLOCK_B) * BLOCK_B
+    pad = lambda x: jnp.pad(x, ((0, B_p - B), (0, S - m_h)))
+    K_p = padded_rows(iterations)
+    # restart mode may run past the shipped schedule (it ignores it)
+    sched = lambda v: jnp.pad(v[:iterations], (0, K_p - min(v.shape[0], iterations)))
+    operands = [
+        sched(theta), sched(beta),
+        pad(e), pad(p_D[:, 0, :]), pad(p_D[:, 1, :]),
+        jnp.pad(-D, ((0, S - m_h), (0, S - m_h))),
+    ]
+    row = pl.BlockSpec((BLOCK_B, S), lambda i: (i, 0))
+    in_specs = [
+        pl.BlockSpec((K_p,), lambda i: (0,)),
+        pl.BlockSpec((K_p,), lambda i: (0,)),
+        row, row, row,
+        pl.BlockSpec((S, S), lambda i: (0, 0)),
+    ]
+    if y0 is not None:
+        operands += [pad(y0[:, 0, :]), pad(y0[:, 1, :])]
+        in_specs += [row, row]
+    if od is not None:
+        operands.append(jnp.pad(od[None, :], ((0, 0), (0, S - m_h)),
+                                constant_values=1.0))
+        in_specs.append(pl.BlockSpec((1, S), lambda i: (0, 0)))
+    n_out = 5 if diagnostics else 3
+    kernel = functools.partial(
+        _dual_kernel, iterations=iterations, n_chunks=n_chunks, chunk=chunk,
+        restart=restart, warm=y0 is not None, soft=od is not None, diagnostics=diagnostics,
+    )
+    outs = pl.pallas_call(
+        kernel,
+        out_shape=[jax.ShapeDtypeStruct((B_p, S), jnp.float32)] * n_out,
+        grid=(B_p // BLOCK_B,),
+        in_specs=in_specs,
+        out_specs=[row] * n_out,
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
+        backend="triton",
+        interpret=interpret,
+        name="gpad_dual_loop",
+    )(*operands)
+    # columns past the last chunk are never written: crop before use
+    crop = lambda x: x[:B, :m_h]
+    s, yp, ym = map(crop, outs[:3])
+    y = jnp.stack([yp, ym], axis=1)
+    w = jnp.stack([crop(outs[3]), crop(outs[4])], axis=1) if diagnostics else None
+    return y, s, w
+
+
+def dual_loop(data: GPADData, e, p_D, config, y0=None, *, interpret=False):
+    """The fused replacement for ``core._dual_loop``: same arguments, same
+    ``(y, s, w)`` result (``w`` is None without diagnostics).
+
+    ``e`` is g_P GL_T (batch..., m_h), ``p_D`` (batch..., 2, m_h), ``y0``
+    an optional warm-start dual broadcastable to (batch..., 2, m_h).
+    ``interpret=True`` runs the Pallas interpreter (CPU tests only)."""
+    ok, why = admits(data, config)
+    if not ok:
+        raise ValueError(f"the fused dual kernel cannot run this problem: {why}")
+    batch_shape = e.shape[:-1]
+    m_h = data.m_half
+    e2 = e.reshape((-1, m_h))
+    B = e2.shape[0]
+    if y0 is not None:
+        y0 = jnp.broadcast_to(
+            jnp.asarray(y0, jnp.float32), batch_shape + (2, m_h)
+        ).reshape((B, 2, m_h))
+    od = None if data.soft_damp is None else 1.0 - data.soft_damp.astype(jnp.float32)
+    y, s, w = _dual_call(
+        data.D, data.theta, data.beta, e2, p_D.reshape((B, 2, m_h)), y0, od,
+        iterations=config.iterations, restart=config.restart,
+        diagnostics=config.diagnostics, interpret=interpret,
+    )
+    unflat = lambda x: None if x is None else x.reshape(batch_shape + x.shape[1:])
+    return unflat(y), unflat(s), unflat(w)

@@ -2,9 +2,9 @@
 
 The reference solves its 28 ``inputs_manysets`` datasets one file at a time
 in a host loop (``main.cu:104-108`` re-reads and re-uploads per dataset).
-The TPU-native equivalent stacks the per-plant constants along a leading
-axis and ``vmap``s the whole solver over it: every plant's iteration runs
-in the same XLA program, so the MXU sees one batched matmul per step
+Here the per-plant constants stack along a leading axis and ``vmap``
+runs the whole solver over it: every plant's iteration runs in the same
+XLA program, so the device sees one batched matmul per step
 instead of P sequential launches — fleets of heterogeneous controllers
 (same dimensions, different dynamics/costs/limits) solve together.
 

@@ -133,9 +133,9 @@ def polish(
     the host, and refine (add violated rows / drop negative-multiplier
     rows) until the KKT conditions hold. Starting from a converged GPAD
     iterate this typically costs ONE dense KKT solve — turning an
-    fp32-accuracy device solve into an exact optimum, including on TPU
-    where the fp32-highest iteration plateaus ~1e-3 from the fp64 optimum
-    on near-degenerate directions (docs/DESIGN.md). No reference analogue
+    fp32-accuracy device solve into an exact optimum, including where the
+    fp32 iteration plateaus away from the fp64 optimum on near-degenerate
+    directions (docs/DESIGN.md). No reference analogue
     (the reference never recovers beyond fp32).
 
     Equality-encoded pairs (the battery problem's charge coupling appears
@@ -286,8 +286,8 @@ def solve_condensed_qp(qp, x0, method: str = "active_set",
     CHECK ``status``: the active-set method adds/drops ONE row per
     iteration, so large stacks can exhaust ``max_iter`` far from the
     optimum — at the 30x30 flagship (m=3660) the default cap returned
-    iterates ~0.08-0.10 from the certified optimum while earlier rounds
-    read them as solver error (FLAGSHIP_ACCURACY.json post-mortem). For
+    iterates ~0.08-0.10 from the certified optimum, which is easily
+    misread as solver error (``tools/flagship_accuracy.py``). For
     big shapes prefer ``certified_optimum`` (polish from a converged
     device iterate: one-to-few f64 KKT solves instead of hundreds of
     active-set pivots)."""

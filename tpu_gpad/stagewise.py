@@ -16,34 +16,24 @@ QUADRATIC part is w-independent and precomputed offline. The reference never
 implements this (SURVEY.md section 5, "long-context" row: the O(N)
 non-condensed alternative is "not implemented").
 
-This module is that variant, TPU-first:
+This module is that variant:
 
 - offline (float64 NumPy, like ``condense``): the Riccati gain sequence
   ``K_k``, closed-loop transitions ``E_k = A_k - B_k K_k`` and inverted
   input Hessians ``Hi_k = (R_k + B_k' Ptilde_{k+1} B_k)^-1``;
 - online (jitted): each GPAD iteration runs ONE backward affine sweep and
   ONE forward rollout as ``lax.scan``s — after ``vmap`` over scenarios the
-  scan body is (B, n) @ (n, n) batched matmuls that tile onto the MXU;
+  scan body is (B, n) @ (n, n) batched matmuls;
 - constraints stay stage-local (state/input boxes, per-stage coupling and
   polytopes), so applying ``G`` and ``G'`` is two small einsums per stage
   instead of a dense (m x n_z) contraction.
 
 Per-iteration cost and memory are O(N) instead of O(N^2): the condensed
-operands for e.g. battery n=30, N=200 are ~300 MB and do not fit VMEM at
-any tiling, while the stage-wise data is ~2 MB at the same shape. The
-trade is sequential depth (2N sweep steps per iteration vs one matmul),
-answered by three executors behind one auto-routed API (chip-measured,
-STAGEWISE.json; docs/DESIGN.md section 11): a fused whole-solve Pallas
-kernel (``stagewise_kernel``, big-batch/moderate-N), an HBM-STREAMED
-fused kernel (``stagewise_stream``, the big-state shapes past the VMEM
-wall), parallel-prefix ``associative_scan`` sweeps (small state, latency
-regime) and the plain ``lax.scan`` path. Measured outcome (round-5
-re-measure with all four executors routed): stage-wise BEATS the
-condensed engines at long horizons — battery n8 at N=240 for every batch
-(1.41x at B=128, 2.13x at B=4096), from N>=60 at B=4096 (1.10-1.18x),
-and battery n30 N200 at every batch (2.53x at B=64, 6.23x at B=1024) —
-while condensed keeps short horizons (N=10: ~4.4x) and mid-horizon small
-batch.
+operands for e.g. battery n=30, N=200 are ~300 MB, while the stage-wise
+data is ~2 MB at the same shape. The trade is sequential depth (2N sweep
+steps per iteration vs one matmul), answered by two XLA executors behind
+one auto-routed API: parallel-prefix ``associative_scan`` sweeps (small
+state, latency regime) and the plain ``lax.scan`` path.
 
 Scope: hard per-stage constraints, LTI or LTV dynamics, per-stage Q/R and
 ``Q_terminal``, affine dynamics offsets ``c_k`` and a build-time-fixed
@@ -490,22 +480,18 @@ def build_stagewise(
     )
 
 
+# Routing constants of ``stagewise_preferred``. They were tuned on another
+# accelerator and have not been re-measured on the GPU yet: treat each as
+# a hypothesis until the benchmark re-measures the condensed/stage-wise
+# crossover there.
+#
 # Hard memory backstop above which auto_solver always prefers the
-# stage-wise engine (projected condensed MVP operand MB); the THROUGHPUT
-# crossover below it is chip-measured (STAGEWISE.json, DESIGN.md §11) and
-# encoded in `stagewise_preferred`.
+# stage-wise engine (projected condensed MVP operand MB).
 AUTO_STAGEWISE_ABOVE_MB = 256.0
-
-# Chip-measured throughput crossover (STAGEWISE.json, 9-row gated ladder,
-# battery-class plants): stage-wise beats condensed at every measured
-# batch from N=240 (1.30-1.41x at n8; 1.9-3.2x at n30 N200) while losing
-# at N=120 small batch (0.74x at B=256); boundary taken at the geometric
-# midpoint of the measured 120-loss / 240-win rows.
+# Any-batch horizon crossover for battery-class plants (n_x + n_u >= 10).
 AUTO_STAGEWISE_HORIZON = 170
-# Large-batch branch: the N=60/120 B=4096 stage-wise wins (1.09x/1.18x)
-# are carried by the fused kernel, whose eligibility rule is B >= 24N
-# (DESIGN.md §11b) — the routing reuses that boundary; below N=60 the
-# kernel no longer saves it (N=10 B=1024: 0.18x).
+# Large-batch branch: from this horizon on, a known batch of at least 24 N
+# prefers the stage-wise engine.
 AUTO_STAGEWISE_MIN_HORIZON_BATCHED = 60
 
 
@@ -516,14 +502,13 @@ def stagewise_preferred(
 ) -> tuple:
     """(prefer, reason): should auto routing take the stage-wise engine?
 
-    Encodes the chip-measured STAGEWISE.json throughput crossover, not
-    just feasibility: stage-wise when (a) the projected condensed MVP
-    operands exceed the ``threshold_mb`` memory backstop (default
-    ``AUTO_STAGEWISE_ABOVE_MB``), (b) the horizon is past the any-batch
-    crossover (``AUTO_STAGEWISE_HORIZON``), or (c) the batch is known
-    (``batch_hint``) and large enough for the fused stage-wise kernel's
-    measured win region (``B >= 24 N`` at ``N >= 60``). Problems the
-    stage-wise engine cannot represent never prefer it."""
+    Stage-wise when (a) the projected condensed MVP operands exceed the
+    ``threshold_mb`` memory backstop (default ``AUTO_STAGEWISE_ABOVE_MB``),
+    (b) the horizon is past the any-batch crossover
+    (``AUTO_STAGEWISE_HORIZON``), or (c) the batch is known
+    (``batch_hint``) and large (``B >= 24 N`` at
+    ``N >= AUTO_STAGEWISE_MIN_HORIZON_BATCHED``). Problems the stage-wise
+    engine cannot represent never prefer it."""
     ok, reason = stagewise_compatible(problem)
     if not ok:
         return False, reason
@@ -532,34 +517,26 @@ def stagewise_preferred(
     if mb > lim:
         return True, f"projected condensed operands {mb:.1f} MB > {lim:g} MB"
     N = problem.horizon
-    # The throughput branches below are anchored to the MEASURED
-    # battery-class family (per-stage size n_x + n_u = 16..60,
-    # STAGEWISE.json). They do NOT extend to tiny per-stage state: at
-    # (n_x + n_u) = 4 — the MHE block problem, chip-measured — condensed
-    # wins 21x even at T=180 (MHE_STAGEWISE.json: the condensed QP is
-    # still whole-VMEM-kernel sized while the 2N sequential sweeps have
-    # almost no math to amortize), and on the MPC side the double
-    # integrator at (n+p)=3 B1024 loses 17x/9.5x/14x at N=240/400/1000
-    # (STAGEWISE.json smallstate_rows — no horizon flips it). Below the
-    # measured family only the memory backstop above routes stage-wise.
+    # The throughput branches below hold for battery-class per-stage sizes
+    # (n_x + n_u = 16..60). Tiny per-stage state (the MHE block problem,
+    # the double integrator) has almost no math per sweep step to amortize
+    # the 2N sequential steps, so only the memory backstop routes it
+    # stage-wise.
     if problem.n_x + problem.n_u < 10:
         return False, (
-            "per-stage state too small for the measured throughput "
-            "crossover (MHE_STAGEWISE.json: condensed 21x at (n+p)=4); "
+            "per-stage state too small for the throughput crossover; "
             "memory backstop only")
     if N >= AUTO_STAGEWISE_HORIZON:
         return True, (
-            f"horizon {N} >= {AUTO_STAGEWISE_HORIZON} (measured any-batch "
-            "crossover, STAGEWISE.json)")
+            f"horizon {N} >= {AUTO_STAGEWISE_HORIZON} (any-batch crossover)")
     if (
         batch_hint is not None
         and N >= AUTO_STAGEWISE_MIN_HORIZON_BATCHED
         and batch_hint >= 24 * N
     ):
         return True, (
-            f"batch {batch_hint} >= 24*N at N={N} (measured kernel-carried "
-            "large-batch win, STAGEWISE.json)")
-    return False, "condensed wins at this (N, batch) per STAGEWISE.json"
+            f"batch {batch_hint} >= 24*N at N={N} (large-batch branch)")
+    return False, "condensed at this (N, batch)"
 
 
 def auto_solver(
@@ -569,14 +546,14 @@ def auto_solver(
     batch_hint: Optional[int] = None,
     **build_kw,
 ):
-    """Problem-level engine routing to the measured-FASTEST engine.
+    """Problem-level engine routing between condensed and stage-wise.
 
     Returns ``(solve_fn, data, kind)`` with ``kind`` in
     {"condensed", "stagewise"} and ``solve_fn(x0, config=None, **kw)``
     having the ``solve_batch``/``solve_stagewise`` calling convention
-    (both accept a ``SolverConfig``). Routing is ``stagewise_preferred``:
-    the chip-measured STAGEWISE.json throughput crossover (stage-wise at
-    N >= 170 any batch, or N >= 60 with ``batch_hint >= 24 N``), with
+    (both accept a ``SolverConfig``). Routing is ``stagewise_preferred``
+    (stage-wise at N >= 170 any batch, or N >= 60 with
+    ``batch_hint >= 24 N``), with
     ``threshold_mb`` (default ``AUTO_STAGEWISE_ABOVE_MB``) as the hard
     memory backstop; condensation-path-only features (rate limits)
     always condense, and stage-wise-only build options (``x_ref``) force
@@ -587,8 +564,7 @@ def auto_solver(
     cannot see (it routes AFTER condensation already happened).
 
     Reference anchor: the condensation decision itself (``gpad.m:50-63``)
-    — the reference has one formulation; this framework has both and
-    chooses by measurement."""
+    — the reference has one formulation; this framework has both."""
     # NOTE: the package __init__ shadows the submodule name with the
     # function, so import the functions, not the module
     from tpu_gpad.condense import condense as _condense, dualize as _dualize
@@ -647,8 +623,7 @@ def _lqr_solve_assoc(
     recurrences, so their prefixes compose associatively — depth drops
     from N to log2(N) at an O(log N) work premium (the classic
     parallel-prefix Riccati sweep; ``lax.scan`` is work-optimal but
-    serial). The right choice is measured, not assumed: see
-    STAGEWISE.json / DESIGN.md section 11 for the chip crossover.
+    serial). ``solve_stagewise``'s ``scan="auto"`` picks between them.
     """
     N = data.horizon
     s_N = qx[-1]
@@ -689,9 +664,9 @@ def _lqr_solve(data: StagewiseData, qx: jax.Array, ru: jax.Array, x0: jax.Array,
     """Jitted LQR solve with linear-cost perturbations (qx, ru).
 
     Two ``lax.scan``s over the horizon; all contractions run at HIGHEST
-    precision — the backward sweep chains N matmuls, and TPU-default bf16
-    operands corrupt the chain exactly like the device-condensation KKT
-    solves (docs/DESIGN.md section 9).
+    precision — the backward sweep chains N matmuls, and reduced-precision
+    default matmuls (TF32 on a GPU) corrupt the chain exactly like the
+    device-condensation KKT solves (docs/DESIGN.md section 9).
     """
     dot = lambda M, v: jnp.einsum("ij,...j->...i", M, v, precision=_HI)
 
@@ -982,7 +957,6 @@ def solve_stagewise(
     check_every: int = 10,
     restart: bool = False,
     unroll: int = 1,
-    engine: str = "auto",
     config=None,
     q_lin: Optional[jax.Array] = None,
     c: Optional[jax.Array] = None,
@@ -1003,23 +977,12 @@ def solve_stagewise(
     (..., N, m_x + m_u) with state rows first per stage (the layout this
     function returns in ``SolveResult.y``).
 
-    ``scan``: "auto" (default — chip-measured routing, STAGEWISE.json:
-    parallel-prefix sweeps when the per-stage matrices are small,
-    n_x + n_u <= 24, where the sequential scans are latency-bound —
-    2.0-3.3x at n8 small batch; sequential for larger state, n30:
-    0.4-0.7x), "sequential" (``lax.scan`` sweeps, work-optimal) or
-    "associative" (parallel-prefix, depth log2(N) at an O(log N) work
-    premium). ``engine``: "auto" (default; fixed mode additionally takes
-    the whole-VMEM fused kernel when ``B >= 24 N`` and the batch fits
-    <= 16 VMEM tiles, and otherwise the HBM-STREAMED fused kernel
-    wherever scan routing would pick "sequential" — chip-measured
-    1.37-1.94x over the scan at the big-state/long-horizon shapes,
-    STAGEWISE.json stream_rows), "pallas" (force the whole-VMEM kernel),
-    "stream" (force the streamed kernel) or "xla" (the scan executors;
-    forced kernels raise where they cannot apply). ``unroll`` unrolls the
-    sequential
-    scan bodies (chip-measured ~7% at 8 on the n8 N240 flagship — the
-    scan overhead is not loop bookkeeping; kept as a knob).
+    ``scan``: "auto" (default — parallel-prefix sweeps when the per-stage
+    matrices are small, n_x + n_u <= 24, and the batch is below 1024,
+    where the sequential scans are latency-bound; sequential otherwise),
+    "sequential" (``lax.scan`` sweeps, work-optimal) or "associative"
+    (parallel-prefix, depth log2(N) at an O(log N) work premium).
+    ``unroll`` unrolls the sequential scan bodies.
 
     ``q_lin`` / ``c`` are PER-SOLVE runtime parameters (the stage-wise
     twin of the condensed parameter maps, ``acceldualgrad.m:20-23``):
@@ -1028,8 +991,7 @@ def solve_stagewise(
     ``-Q r_k``, or MHE's measurement terms ``-C'V^-1 y_k``); ``c``
     (same shape) adds a runtime affine dynamics offset ``x_{k+1} +=
     c_k`` (e.g. MHE's known-input forcing ``B u_k``). Both compose with
-    any build-time ``problem.c``/``x_ref`` constants; the fused kernel
-    declines them (XLA executors route automatically).
+    any build-time ``problem.c``/``x_ref`` constants.
 
     Returns a ``SolveResult`` with ``u`` = first move, ``z`` the full input
     trajectory (N*n_u, the condensed z convention), ``y`` the stage-packed
@@ -1042,15 +1004,6 @@ def solve_stagewise(
         eps_g, eps_V = config.eps_g, config.eps_V
         check_every = config.check_every
         restart = config.restart
-        # config.engine selects WHICH stage-wise executor ("stagewise"
-        # itself arrives here as the condensed-level routing choice and
-        # maps to auto)
-        if engine == "auto" and config.engine in ("pallas", "xla", "stream"):
-            engine = config.engine
-    if engine not in ("auto", "pallas", "stream", "xla"):
-        raise ValueError(
-            f"engine must be 'auto', 'pallas', 'stream' or 'xla': "
-            f"{engine!r}")
     if scan not in ("auto", "sequential", "associative"):
         raise ValueError(
             f"scan must be 'auto', 'sequential' or 'associative': {scan!r}")
@@ -1077,113 +1030,11 @@ def solve_stagewise(
         ).reshape((B, N, m_x + m_u))
         y0x, y0u = y0[..., :m_x], y0[..., m_x:]
 
-    # fused-kernel fast path (docs/DESIGN.md section 11b): whole solve in
-    # VMEM per batch tile, scenario-minor layout. Auto takes it on TPU for
-    # fixed-mode cold starts whenever it fits; forcing engine="pallas"
-    # runs interpret mode off-TPU (slow, for tests).
-    has_runtime = q_lin is not None or c is not None
-    forced_kernel = engine in ("pallas", "stream")
-    if forced_kernel and has_runtime:
-        raise ValueError(
-            "stagewise kernels do not take runtime q_lin/c parameters; "
-            "they ride the XLA stage-wise path (engine='xla'/'auto')")
-    if forced_kernel and mode != "fixed":
-        raise ValueError(
-            "stagewise kernels cover mode='fixed' only; eps mode "
-            "rides the XLA stage-wise path (engine='xla'/'auto')")
-    if engine in ("auto", "pallas", "stream") and mode == "fixed" \
-            and not has_runtime:
-        from tpu_gpad.stagewise_kernel import (
-            solve_stagewise_pallas,
-            stagewise_kernel_compatible,
-            stagewise_kernel_wins,
-        )
-        from tpu_gpad.stagewise_stream import (
-            solve_stagewise_stream,
-            stagewise_stream_compatible,
-        )
-
-        ok, why = stagewise_kernel_compatible(data)
-        ok_st, why_st = stagewise_stream_compatible(data)
-        on_tpu = jax.default_backend() == "tpu"
-        if engine == "pallas":
-            if not ok:
-                raise ValueError(f"stagewise kernel cannot take this: {why}")
-            if scan == "associative":
-                raise ValueError("stagewise kernel implies sequential scan")
-        if engine == "stream":
-            if not ok_st:
-                raise ValueError(
-                    f"stagewise stream kernel cannot take this: {why_st}")
-            if scan == "associative":
-                raise ValueError("stagewise kernels imply sequential scan")
-        use_kernel = (
-            ok and scan in ("auto", "sequential")
-            and (
-                engine == "pallas"
-                or (engine == "auto" and scan == "auto" and on_tpu
-                    and stagewise_kernel_wins(
-                        data.horizon, xb.shape[0], data))
-            )
-        )
-        # HBM-streamed kernel: chip-measured to beat the SEQUENTIAL scan
-        # at every shape (1.37-1.94x, STAGEWISE.json stream_rows) while
-        # losing to the parallel-prefix path in its small-state small-
-        # batch latency regime — so auto takes it exactly where scan
-        # routing would pick "sequential" and the whole-VMEM kernel
-        # does not apply
-        would_be_seq = not (
-            data.n_x + data.n_u <= 24 and xb.shape[0] < 1024
-        )
-        use_stream = (
-            not use_kernel
-            and ok_st
-            and scan in ("auto", "sequential")
-            and (
-                engine == "stream"
-                or (engine == "auto" and scan == "auto" and on_tpu
-                    and would_be_seq)
-            )
-        )
-        y0k = (
-            None
-            if y0 is None
-            else jnp.concatenate([y0x, y0u], axis=-1)
-        )
-        if use_stream or use_kernel:
-            if use_stream:
-                u0k, zuk, yk, residk, gapk = solve_stagewise_stream(
-                    data, xb, iterations=n_iters, restart=restart,
-                    interpret=not on_tpu, y0=y0k,
-                )
-            else:
-                # v2: warm starts ride the kernel too (the dual DMA's
-                # into the same scratch the cold path zeros)
-                u0k, zuk, yk, residk, gapk = solve_stagewise_pallas(
-                    data, xb, iterations=n_iters, restart=restart,
-                    interpret=not on_tpu, y0=y0k,
-                )
-            rs = lambda a: a.reshape((*batch_shape, *a.shape[1:]))
-            return SolveResult(
-                u=rs(u0k),
-                z=rs(zuk.reshape(B, -1)),
-                y=rs(yk),
-                iterations=rs(
-                    jnp.full((B,), n_iters, dtype=jnp.int32)),
-                residual=rs(residk),
-                gap=rs(gapk),
-                converged=rs(jnp.ones((B,), dtype=bool)),
-            )
-
     if scan == "auto":
-        # chip-measured executor rule (STAGEWISE.json round-4 ladder):
-        # with small per-stage matrices (n_x + n_u <= 24) the parallel-
-        # prefix sweeps beat the latency-bound sequential scans at small
-        # batch (2.0-3.3x at B <= 256) but sit slightly BEHIND them once
-        # the batch amortizes the scan (0.84-0.94x at B >= 1024); at
-        # n_x + n_u = 60 (battery n30) the log-depth combine's O(log N)
-        # extra matmul work loses at every batch (0.40-0.68x). Boundary
-        # taken between the measured B=256 and B=1024 rows.
+        # small per-stage matrices at small batch: the sequential scans are
+        # latency-bound and the log-depth sweeps win; large state or a
+        # batch that amortizes the scan pays for the O(log N) extra work.
+        # Tuned on another accelerator; not yet re-measured on the GPU.
         scan = (
             "associative"
             if (data.n_x + data.n_u <= 24 and xb.shape[0] < 1024)
@@ -1198,7 +1049,7 @@ def solve_stagewise(
             )
         return _solve_one(dd, x, yx, yu, n_iters, scan, restart, unroll)
 
-    if has_runtime:
+    if q_lin is not None or c is not None:
         # fold the runtime parameters into per-solve effective constants
         # (the same algebra build_stagewise runs offline for build-time
         # c/x_ref, now batched on device): dtl_k = Ptilde_{k+1} c_k,
@@ -1289,9 +1140,8 @@ def solve_stagewise_multi(
 
     ``x0`` is (P, n_x) — one state per plant — or (P, B, n_x) for an
     inner scenario batch per plant. ``y0`` broadcastable to
-    (P[, B], N, m_x + m_u). Runs the XLA stage-wise executors (the fused
-    kernels assume shared constants); ``scan`` routing follows
-    ``solve_stagewise`` with the per-plant batch size."""
+    (P[, B], N, m_x + m_u). Runs the XLA stage-wise executors; ``scan``
+    routing follows ``solve_stagewise`` with the per-plant batch size."""
     if config is not None:
         iterations = config.iterations
         mode = config.mode
@@ -1347,8 +1197,7 @@ def solve_stagewise_multi(
 
 # Module-level jitted solve entries for stateful serving (controller /
 # SQP): an UN-jitted solve_stagewise re-traces the 2N-step scan on every
-# call — the exact ~7x measurement trap DESIGN.md §11's post-mortem
-# records (1.5k vs 10.9k solves/s at n8 N240 B4096). `data` rides as a
+# call, which costs more than the solve at serving shapes. `data` rides as a
 # pytree ARGUMENT (constant shapes -> one trace), `config` is static
 # (hashable frozen dataclass, same pattern as core.solve_batch).
 @functools.partial(jax.jit, static_argnames=("config",))
@@ -1382,13 +1231,10 @@ class StagewiseController:
     build once, then ``step(x) -> u`` with dual warm starts.
 
     The stage-wise twin of ``closed_loop.Controller`` (which condenses):
-    for horizons past the condensation wall — or simply past the
-    measured crossover (STAGEWISE.json; battery-class plants win from
-    N~240 at any batch) — this serves the same embedded-MPC contract
-    with O(N) data. Warm starts ride the XLA stage-wise path
-    (consecutive MPC QPs differ only in x0, so the previous sample's
-    stage-packed dual is the right initializer; the fused kernel is
-    cold-start-only and keeps serving ``solve_batch``-style cold fleets).
+    for horizons past the condensation wall this serves the same
+    embedded-MPC contract with O(N) data. Consecutive MPC QPs differ only
+    in x0, so the previous sample's stage-packed dual is the right
+    initializer.
 
     ``step`` accepts one state (n_x,) or a batch (B, n_x) of independent
     plants and returns the first move(s) as float32 NumPy. ``reset()``

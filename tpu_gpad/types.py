@@ -150,7 +150,7 @@ def _register_pytree_dataclass(cls, data_fields, meta_fields):
 
 @dataclass(frozen=True)
 class GPADData:
-    """Everything the online GPAD solver needs, laid out for TPU matmuls.
+    """Everything the online GPAD solver needs, laid out for batched matmuls.
 
     The per-iteration math (reference: ``acceldualgrad.m:43-52``; cookbook
     steps 1-4) in canonical (MATLAB/paper) sign convention is
@@ -166,8 +166,8 @@ class GPADData:
         p_D = X0 @ pD_map + pD_const        # = -(b0 + E x0) / L
 
     Both hot products are (B, m) @ (m, n_z) and (B, n_z) @ (n_z, m) matrix
-    multiplies that tile directly onto the MXU — the TPU-native replacement
-    for the reference's one-row-per-CUDA-thread MVP kernels
+    multiplies — the batched replacement for the reference's
+    one-row-per-CUDA-thread MVP kernels
     (``kernel_functions.cu:16-64,142-200``).
     """
 
@@ -191,7 +191,7 @@ class GPADData:
     theta: jax.Array  # (max_iters,) momentum schedule
     beta: jax.Array  # (max_iters,)
     soft_damp: Optional[jax.Array] = None  # (m_h,) per-row dual damping
-    # for SOFT (quadratic-penalty) constraints, the TPU-native slack-free
+    # for SOFT (quadratic-penalty) constraints, the slack-free
     # formulation: a constraint softened with penalty weight rho
     # contributes -(1/2 rho)||y_row||^2 to the dual, so its projected-
     # gradient update becomes y+ = relu((1 - damp) * w + <usual step>)
@@ -205,7 +205,7 @@ class GPADData:
     # = P H^-1 P' / L, precomputed for the dual-only iteration form: steps
     # 2+4 collapse into q = -(w+ - w-) @ D - e with e = g_P @ GL_T per
     # scenario, and the primal z is recovered AFTER the loop from the
-    # accumulated s = sum_k c_k (w+ - w-)_k via one matmul. One square MXU
+    # accumulated s = sum_k c_k (w+ - w-)_k via one matmul. One square
     # matmul per iteration instead of two rectangular ones; z/zhat never
     # touched in the hot loop. (Pure algebra on acceldualgrad.m:43-52 — no
     # reference analogue; the CUDA code runs all four steps explicitly every

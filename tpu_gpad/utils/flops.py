@@ -7,8 +7,7 @@ count depends on the iteration *form* actually executed (``core.resolve_form``)
 since the dual-only form replaces the two rectangular MVPs with one square
 product against the dual Hessian. Counts are LOGICAL (unpadded) multiply-add
 pairs — the standard MFU numerator — so %-of-peak reflects useful work, with
-TPU lane/sublane padding showing up as lost efficiency rather than inflated
-flops.
+kernel padding showing up as lost efficiency rather than inflated flops.
 """
 
 from __future__ import annotations
